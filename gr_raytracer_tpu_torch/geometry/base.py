@@ -1,0 +1,86 @@
+"""Geometry base: inner product, frames, observers (port of
+gr_raytracer_tpu/geometry/base.py).
+
+Geometries are frozen dataclasses of 0-d tensors; every method is a plain
+function of [..., 4] tensors and keeps their device and dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def unit_time_vector(x):
+    """e_t = (1, 0, 0, 0) broadcast like x."""
+    e_t = torch.zeros_like(x)
+    e_t[..., 0] = 1.0
+    return e_t
+
+
+class Geometry:
+    """Frame and observer methods shared by the geometries. A subclass
+    provides chart, spin, signature(), metric(x), tetrad(x),
+    radial_coordinate(x, chart), orbit_coefficients_at_radius(r),
+    axial_killing(x), stationary_velocity(x) and make_solver(x0, p0)."""
+
+    def inner_product(self, x, v, w):
+        """g_{μν} v^μ w^ν at x."""
+        g = self.metric(x)
+        return torch.einsum("...ij,...i,...j->...", g, v, w)
+
+    def lorentz_transformation(self, x, velocity):
+        """Boost matrix mapping the tetrad frame to the observer with
+        four-velocity `velocity`."""
+        g = self.metric(x)
+        t = self.tetrad(x)[..., 0, :]
+        s = self.signature()[0]
+        gamma = s * torch.einsum("...ij,...i,...j->...", g, t, velocity)
+        tv = t + velocity
+        tv_lower = torch.einsum("...ij,...j->...i", g, tv)
+        gt = torch.einsum("...ij,...j->...i", g, t)
+        eye = torch.eye(4, dtype=x.dtype, device=x.device)
+        outer1 = tv[..., :, None] * tv_lower[..., None, :]
+        outer2 = velocity[..., :, None] * gt[..., None, :]
+        return eye - s * (outer1 / (1.0 + gamma)[..., None, None] - 2.0 * outer2)
+
+    def circular_orbit_killing_coefficients(self, x, chart=None):
+        """(u_t, u_φ, ok) at the point's radius."""
+        r = self.radial_coordinate(x, chart or self.chart)
+        return self.orbit_coefficients_at_radius(r)
+
+    def circular_orbit_velocity(self, x):
+        """(u [..., 4], ok): circular-orbit four-velocity at x."""
+        u_t, u_phi, ok = self.circular_orbit_killing_coefficients(x)
+        u = u_t[..., None] * unit_time_vector(x) + u_phi[..., None] * self.axial_killing(x)
+        return u, ok
+
+
+def gram_schmidt(geometry, x, vectors):
+    """Metric-aware Gram-Schmidt along axis -2 of `vectors` [..., n, 4]."""
+    out = []
+    for i in range(vectors.shape[-2]):
+        w = vectors[..., i, :]
+        for u in out:
+            num = geometry.inner_product(x, w, u)
+            den = geometry.inner_product(x, u, u)
+            w = w - (num / den)[..., None] * u
+        norm = torch.sqrt(torch.abs(geometry.inner_product(x, w, w)))
+        out.append(w / norm[..., None])
+    return torch.stack(out, dim=-2)
+
+
+def validate_tetrad(geometry, x, tetrad, tol=None):
+    """Host-side orthonormality check; raises ValueError when any of the 10
+    inner products deviates from the signature by more than `tol` (1e-5 in
+    float64, 1e-4 in float32)."""
+    if tol is None:
+        tol = 1e-5 if tetrad.dtype == torch.float64 else 1e-4
+    sig = geometry.signature()
+    for i in range(4):
+        for j in range(i, 4):
+            got = geometry.inner_product(x, tetrad[..., i, :], tetrad[..., j, :])
+            want = sig[i] if i == j else 0.0
+            if not bool(torch.all(torch.abs(got - want) < tol)):
+                raise ValueError(
+                    f"tetrad not orthonormal: <e{i}, e{j}> = {got.tolist()} (want {want})"
+                )

@@ -1,0 +1,468 @@
+"""Fixed-step RK4 Kerr-Schild geodesic march with in-loop disc events
+(counterpart of gr_raytracer_tpu/ops/geodesic_pallas.py::kerr_rk4_march).
+
+`kerr_rk4_march` is the entry point. For tensors on the card it launches
+the hand-written CUDA kernel csrc/kerr_rk4_march.cu; for tensors on the CPU
+it runs `march_plain`, the same march in plain torch, vectorized over lanes
+with masks. The two share the arithmetic line for line: see the kernel's
+header for its design and what bounds it.
+
+Step size: h = h0 · clip((r − r₊)/r_ref, h_min_frac, 1), with the far-field
+lever (half-gap steps for outward lanes beyond r_safe). Events: equatorial
+thin-disc crossings into a K-slot per-lane buffer of 12-wide payloads
+(point3 | p_contra4 | uv2 | seg_dir3).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from gr_raytracer_tpu_torch.rendering import integrator as integ
+
+MAX_EVENTS = 8
+EVENT_WIDTH = 12
+MAX_DISCS = 8  # kMaxDiscs in the CUDA source
+# Lanes are re-gathered every this many iterations of the plain march, so
+# finished lanes stop costing work.
+_COMPACT_EVERY = 32
+
+# Launches of the CUDA kernel (the plain version does not count).
+launches = 0
+# When set to a list, each kernel launch appends its (start, end) CUDA events.
+launch_timer = None
+
+
+class DiscSpec(NamedTuple):
+    """Static per-disc radial bounds for in-kernel crossing detection."""
+
+    inner: float
+    outer: float
+    kind: int  # object index in the scene
+
+
+# ---------------------------------------------------------------------------
+# Plain torch version. Per-lane variables are [N] tensors; states are [8, N]
+# (component-major, as in the TPU kernel) so every line reads like the
+# kernel's. Every division has a tensor divisor (see _plain_step).
+# ---------------------------------------------------------------------------
+
+
+def _ks_radius(a, x, y, z):
+    rho_sq = x * x + y * y + z * z
+    d = rho_sq - a * a
+    s = torch.sqrt(d * d + 4.0 * a * a * z * z)
+    return torch.sqrt(0.5 * (d + s))
+
+
+def _ks_scalars(radius, a, x, y, z):
+    """f and k (covariant) for Kerr-Schild, componentwise over lanes."""
+    rho_sq = x * x + y * y + z * z
+    d = rho_sq - a * a
+    r_sq = 0.5 * (d + torch.sqrt(d * d + 4.0 * a * a * z * z))
+    r = torch.sqrt(r_sq)
+    f = (r * r_sq * radius) / (r_sq * r_sq + a * a * z * z)
+    denom = r_sq + a * a
+    kx = (r * x + a * y) / denom
+    ky = (r * y - a * x) / denom
+    kz = z / torch.clamp(r, min=1e-30)
+    return f, kx, ky, kz, r
+
+
+def _rhs(radius, a, y):
+    """dy/dλ for y = [x4 | p_cov4] as [8, N], with the hand-derived ∂H/∂x
+    (ṗ_μ = −½ ∂_μ g^{αβ} p_α p_β written out along the Kerr-Schild chain)."""
+    x, yy, z = y[1], y[2], y[3]
+    p = y[4:8]
+    a2 = a * a
+    rho_sq = x * x + yy * yy + z * z
+    d = rho_sq - a2
+    dd4 = d * d + 4.0 * a2 * z * z
+    inv_s = torch.rsqrt(dd4)
+    s = dd4 * inv_s
+    r_sq = 0.5 * (d + s)
+    inv_r = torch.rsqrt(r_sq)
+    r = r_sq * inv_r
+    D = r_sq * r_sq + a2 * z * z
+    denom = r_sq + a2
+    inv_Dd = 1.0 / (D * denom)
+    inv_D = inv_Dd * denom
+    inv_denom = inv_Dd * D
+    f = radius * r * r_sq * inv_D
+    kx = (r * x + a * yy) * inv_denom
+    ky = (r * yy - a * x) * inv_denom
+    kz = z * inv_r
+
+    k_dot_p = -p[0] + kx * p[1] + ky * p[2] + kz * p[3]
+    xdot_t = -p[0] + f * k_dot_p
+    xdot_x = p[1] - f * kx * k_dot_p
+    xdot_y = p[2] - f * ky * k_dot_p
+    xdot_z = p[3] - f * kz * k_dot_p
+
+    # ∂r²/∂xi = xi(1 + d/s) + 2a²z δiz/s ;  ∂r = ∂r²/(2r)
+    common = 1.0 + d * inv_s
+    dr2_x = x * common
+    dr2_y = yy * common
+    dr2_z = z * common + 2.0 * a2 * z * inv_s
+    half_inv_r = 0.5 * inv_r
+    dr_x = dr2_x * half_inv_r
+    dr_y = dr2_y * half_inv_r
+    dr_z = dr2_z * half_inv_r
+
+    # ∂f/∂xi = R r² [(3D − 4r⁴) ∂r_i − 2a²z r δiz] / D²; 3D − 4r⁴ = 3a²z² − r⁴
+    cf = radius * r_sq * inv_D * inv_D
+    t1 = 3.0 * a2 * z * z - r_sq * r_sq
+    df_x = cf * t1 * dr_x
+    df_y = cf * t1 * dr_y
+    df_z = cf * (t1 * dr_z - 2.0 * a2 * z * r)
+
+    # ∂k/∂xi via the quotient rule on (r·x+a·y)/(r²+a²) etc.
+    dkx_x = (dr_x * x + r - kx * dr2_x) * inv_denom
+    dkx_y = (dr_y * x + a - kx * dr2_y) * inv_denom
+    dkx_z = (dr_z * x - kx * dr2_z) * inv_denom
+    dky_x = (dr_x * yy - a - ky * dr2_x) * inv_denom
+    dky_y = (dr_y * yy + r - ky * dr2_y) * inv_denom
+    dky_z = (dr_z * yy - ky * dr2_z) * inv_denom
+    zir2 = z * inv_r * inv_r
+    dkz_x = -zir2 * dr_x
+    dkz_y = -zir2 * dr_y
+    dkz_z = inv_r - zir2 * dr_z
+
+    dkp_x = p[1] * dkx_x + p[2] * dky_x + p[3] * dkz_x
+    dkp_y = p[1] * dkx_y + p[2] * dky_y + p[3] * dkz_y
+    dkp_z = p[1] * dkx_z + p[2] * dky_z + p[3] * dkz_z
+
+    kp2 = k_dot_p * k_dot_p
+    fkp = f * k_dot_p
+    # ṗ_i = −∂H/∂xi = ½ ∂f_i (k·p)² + f (k·p) ∂(k·p)_i
+    pdot_x = 0.5 * df_x * kp2 + fkp * dkp_x
+    pdot_y = 0.5 * df_y * kp2 + fkp * dkp_y
+    pdot_z = 0.5 * df_z * kp2 + fkp * dkp_z
+    zero = torch.zeros_like(xdot_t)  # p_t conserved (stationary metric)
+    return torch.stack([xdot_t, xdot_x, xdot_y, xdot_z, zero, pdot_x, pdot_y, pdot_z])
+
+
+def _momentum_contra(radius, a, y):
+    """p^μ from the covariant state, [4, N]."""
+    f, kx, ky, kz, _ = _ks_scalars(radius, a, y[1], y[2], y[3])
+    p = y[4:8]
+    k_dot_p = -p[0] + kx * p[1] + ky * p[2] + kz * p[3]
+    return torch.stack(
+        [
+            -p[0] + f * k_dot_p,
+            p[1] - f * kx * k_dot_p,
+            p[2] - f * ky * k_dot_p,
+            p[3] - f * kz * k_dot_p,
+        ]
+    )
+
+
+class _Lanes(NamedTuple):
+    """The plain march's per-lane state; ev_kind [N, K], ev_data [N, K, 12]."""
+
+    y: torch.Tensor  # [8, N]
+    r: torch.Tensor
+    stop: torch.Tensor
+    steps: torch.Tensor
+    ev_kind: torch.Tensor
+    ev_data: torch.Tensor
+    ev_count: torch.Tensor
+    ev_ovf: torch.Tensor
+    comp: torch.Tensor  # [8, N] Kahan compensation
+
+
+_COMPONENT_MAJOR = ("y", "comp")
+
+
+def _take(lanes, idx):
+    return _Lanes(
+        *(t[:, idx] if name in _COMPONENT_MAJOR else t[idx] for name, t in zip(_Lanes._fields, lanes))
+    )
+
+
+def _put(lanes, idx, sub):
+    for name, t, s in zip(_Lanes._fields, lanes, sub):
+        if name in _COMPONENT_MAJOR:
+            t[:, idx] = s
+        else:
+            t[idx] = s
+
+
+def _store_disc_events(discs, crossing, px, py, p_interp, seg, ev_kind, ev_data, ev_count, ev_ovf):
+    """Append one event per hitting lane and disc into the K-slot buffers."""
+    rr = torch.sqrt(px * px + py * py)
+    phi = torch.atan2(py, px)
+    zero = torch.zeros_like(px)
+    lanes = torch.arange(px.shape[0], device=px.device)
+    for disc in discs:
+        hit = crossing & (rr >= disc.inner) & (rr <= disc.outer)
+        width = rr.new_tensor(disc.outer) - rr.new_tensor(disc.inner)
+        r_norm = (rr - disc.inner) / width
+        u = 0.5 + 0.5 * r_norm * torch.cos(phi)
+        v = 0.5 + 0.5 * r_norm * torch.sin(phi)
+        payload = torch.stack([px, py, zero, *p_interp, u, v, *seg], dim=-1)  # [N, 12]
+        store = hit & (ev_count < MAX_EVENTS)
+        sel = lanes[store]
+        slot = ev_count[store].long()
+        ev_kind[sel, slot] = disc.kind
+        ev_data[sel, slot] = payload[store]
+        ev_count = ev_count + store.to(ev_count.dtype)
+        ev_ovf = ev_ovf | (hit & ~store)
+    return ev_count, ev_ovf
+
+
+def _plain_step(c, lanes, discs):
+    """One march iteration over `lanes`; stopped lanes stay frozen."""
+    y, r_here, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, comp = lanes
+    radius, a = c["radius"], c["a"]
+    active = stop == integ.RUNNING
+    h = c["h0"] * torch.clamp((r_here - c["r_plus"]) / c["r_ref"], c["h_min_frac"], 1.0)
+
+    k1 = _rhs(radius, a, y)
+    r_safe = c["r_safe"]
+    if r_safe > 0.0:
+        rho = torch.sqrt(y[1] * y[1] + y[2] * y[2] + y[3] * y[3])
+        speed = torch.sqrt(k1[1] ** 2 + k1[2] ** 2 + k1[3] ** 2)
+        outward = (y[1] * k1[1] + y[2] * k1[2] + y[3] * k1[3]) > 0.0
+        h_far = torch.minimum(0.5 * (rho - r_safe), 0.125 * rho) / torch.clamp(speed, min=1e-12)
+        h = torch.where(outward & (rho > r_safe), torch.maximum(h, h_far), h)
+    k2 = _rhs(radius, a, y + 0.5 * h * k1)
+    k3 = _rhs(radius, a, y + 0.5 * h * k2)
+    k4 = _rhs(radius, a, y + h * k3)
+    # Divisors are tensors: on the card torch turns division by a Python
+    # scalar into multiplication by its reciprocal, which the kernel's true
+    # division would not match.
+    delta = (h / h.new_tensor(6.0)) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    if c["compensated"]:
+        # Kahan accumulation of y += delta.
+        adj = delta - comp
+        t_sum = y + adj
+        comp_new = (t_sum - y) - adj
+        y_new = torch.where(active[None, :], t_sum, y)
+        comp = torch.where(active[None, :], comp_new, comp)
+    else:
+        y_new = torch.where(active[None, :], y + delta, y)
+
+    # Stop determination (priority by the order of the where-chain).
+    pos_finite = torch.all(torch.isfinite(y_new[0:4]), dim=0)
+    mom_finite = torch.all(torch.isfinite(y_new[4:8]), dim=0)
+    r_new = _ks_radius(a, y_new[1], y_new[2], y_new[3])
+    horizon = r_new <= c["r_plus"] + c["horizon_eps"]
+    rho_sq = y_new[1] ** 2 + y_new[2] ** 2 + y_new[3] ** 2
+    escaped = rho_sq > c["max_radius_sq"]
+    steps_new = steps + active.to(steps.dtype)
+    budget = steps_new >= c["budget_steps"] - 1
+    trapped = budget & (r_new < 5.0 * radius)
+    code = torch.full_like(stop, integ.RUNNING)
+    code = torch.where(~mom_finite, integ.NAN, code)
+    code = torch.where(escaped, integ.CELESTIAL, code)
+    code = torch.where(trapped, integ.TRAPPED, code)
+    code = torch.where(horizon, integ.HORIZON, code)
+    code = torch.where(~pos_finite, integ.NAN, code)
+    code = torch.where((code == integ.RUNNING) & budget, integ.BUDGET, code)
+    stop_new = torch.where(active, code, stop)
+
+    if discs:
+        z_prev, z_new = y[3], y_new[3]
+        crossing = (z_prev * z_new < 0.0) & active
+        if bool(crossing.any()):
+            p_prev = _momentum_contra(radius, a, y)
+            p_new = _momentum_contra(radius, a, y_new)
+            frac = z_prev / (z_prev - z_new + (z_prev == z_new).to(y.dtype))
+            px = y[1] + frac * (y_new[1] - y[1])
+            py = y[2] + frac * (y_new[2] - y[2])
+            p_interp = p_prev + frac[None] * (p_new - p_prev)
+            seg = y_new[1:4] - y[1:4]
+            ev_count, ev_ovf = _store_disc_events(
+                discs, crossing, px, py, p_interp, seg, ev_kind, ev_data, ev_count, ev_ovf
+            )
+        if c["opaque_stop"]:
+            stop_new = torch.where(
+                (stop_new == integ.RUNNING) & (ev_count > 0), integ.SATURATED, stop_new
+            )
+    r_carry = torch.where(active, r_new, r_here)
+    return _Lanes(y_new, r_carry, stop_new, steps_new, ev_kind, ev_data, ev_count, ev_ovf, comp)
+
+
+def _check_args(y0, discs, spheres, vols, resume, ckpt_every):
+    if spheres or vols:
+        raise NotImplementedError("sphere and volume events are not yet ported")
+    if resume is not None or ckpt_every:
+        raise NotImplementedError("resume and checkpoints are not yet ported")
+    if y0.dim() != 2 or y0.shape[1] != 8:
+        raise ValueError(f"y0 must be [N, 8], got {tuple(y0.shape)}")
+    if y0.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"y0 must be float32 or float64, got {y0.dtype}")
+    if len(discs) > MAX_DISCS:
+        raise NotImplementedError(f"at most {MAX_DISCS} discs per scene")
+
+
+def march_plain(
+    radius, a, horizon_epsilon, y0, h0, max_steps, max_radius, discs=(), spheres=(), vols=(),
+    h_min_frac=0.01, r_ref_scale=10.0, r_safe=0.0, opaque_stop=False, attempts=None,
+    resume=None, finalize=True, ckpt_every=0, compensated=False,
+):
+    """The march in plain torch on y0's device; same arguments and results
+    as `kerr_rk4_march`."""
+    _check_args(y0, discs, spheres, vols, resume, ckpt_every)
+    dtype, device = y0.dtype, y0.device
+    n = y0.shape[0]
+    attempts = max_steps if attempts is None else int(attempts)
+    # Scalars are rounded to the march dtype, as the kernel's parameters are.
+    sc = lambda v: torch.tensor(float(v), dtype=dtype, device=device)
+    radius_t, a_t = sc(radius), sc(a)
+    m = 0.5 * radius_t
+    c = {
+        "radius": radius_t,
+        "a": a_t,
+        "h0": sc(h0),
+        "r_ref": sc(r_ref_scale),
+        "h_min_frac": float(sc(h_min_frac)),
+        "r_plus": m + torch.sqrt(torch.clamp(m * m - a_t * a_t, min=0.0)),
+        "horizon_eps": sc(horizon_epsilon),
+        "max_radius_sq": sc(max_radius) * sc(max_radius),
+        "r_safe": float(sc(r_safe)),
+        "budget_steps": int(max_steps),
+        "opaque_stop": bool(opaque_stop),
+        "compensated": bool(compensated),
+    }
+    discs = tuple(DiscSpec(float(sc(d.inner)), float(sc(d.outer)), int(d.kind)) for d in discs)
+    y = y0.T.contiguous()
+    lanes = _Lanes(
+        y=y,
+        r=_ks_radius(a_t, y[1], y[2], y[3]),
+        stop=torch.zeros(n, dtype=torch.int32, device=device),
+        steps=torch.zeros(n, dtype=torch.int32, device=device),
+        ev_kind=torch.full((n, MAX_EVENTS), -1, dtype=torch.int32, device=device),
+        ev_data=torch.zeros((n, MAX_EVENTS, EVENT_WIDTH), dtype=dtype, device=device),
+        ev_count=torch.zeros(n, dtype=torch.int32, device=device),
+        ev_ovf=torch.zeros(n, dtype=torch.bool, device=device),
+        comp=torch.zeros_like(y),
+    )
+    it = 0
+    while it < attempts:
+        idx = torch.nonzero(lanes.stop == integ.RUNNING).flatten()
+        if idx.numel() == 0:
+            break
+        sub = _take(lanes, idx)
+        for _ in range(min(_COMPACT_EVERY, attempts - it)):
+            sub = _plain_step(c, sub, discs)
+        _put(lanes, idx, sub)
+        it += _COMPACT_EVERY
+    stop = lanes.stop
+    if finalize:
+        stop = torch.where(stop == integ.RUNNING, integ.BUDGET, stop)
+    return (
+        lanes.y.T.contiguous(), stop, lanes.steps, lanes.ev_kind, lanes.ev_data,
+        lanes.ev_count, lanes.ev_ovf,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel
+# ---------------------------------------------------------------------------
+
+_SOURCE = "kerr_rk4_march.cu"
+_bound: dict = {}
+
+
+def _entry(dtype):
+    """The kernel's C entry point for `dtype`, built on first use."""
+    fn = _bound.get(dtype)
+    if fn is None:
+        from gr_raytracer_tpu_torch.ops import cuda_build
+
+        lib = cuda_build.load(_SOURCE)
+        fn = lib.kerr_rk4_march_f32 if dtype == torch.float32 else lib.kerr_rk4_march_f64
+        p = ctypes.c_void_p
+        fn.argtypes = [
+            p, ctypes.c_int64, p, p, p, p, p, p, p,
+            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), p,
+        ]
+        fn.restype = ctypes.c_int
+        _bound[dtype] = fn
+    return fn
+
+
+def _march_cuda(
+    radius, a, horizon_epsilon, y0, h0, max_steps, max_radius, discs, h_min_frac,
+    r_ref_scale, r_safe, opaque_stop, attempts, finalize, compensated,
+):
+    global launches
+    if not y0.is_contiguous():
+        raise ValueError("y0 must be contiguous")
+    n = y0.shape[0]
+    dev, dtype = y0.device, y0.dtype
+    y_out = torch.empty_like(y0)
+    stop = torch.empty(n, dtype=torch.int32, device=dev)
+    steps = torch.empty(n, dtype=torch.int32, device=dev)
+    ev_kind = torch.empty((n, MAX_EVENTS), dtype=torch.int32, device=dev)
+    ev_data = torch.empty((n, MAX_EVENTS, EVENT_WIDTH), dtype=dtype, device=dev)
+    ev_count = torch.empty(n, dtype=torch.int32, device=dev)
+    ev_ovf = torch.empty(n, dtype=torch.bool, device=dev)
+    params = (ctypes.c_double * 8)(
+        float(radius), float(a), float(horizon_epsilon), float(h0), float(max_radius),
+        float(h_min_frac), float(r_ref_scale), float(r_safe),
+    )
+    disc_rows = (ctypes.c_double * (3 * MAX_DISCS))(
+        *[float(v) for d in discs for v in (d.inner, d.outer, d.kind)]
+    )
+    ints = (ctypes.c_int * 5)(
+        int(attempts), int(max_steps), int(bool(opaque_stop)), int(bool(finalize)),
+        int(bool(compensated)),
+    )
+    fn = _entry(dtype)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        timed = launch_timer is not None
+        if timed:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+        err = fn(
+            y0.data_ptr(), n, y_out.data_ptr(), stop.data_ptr(), steps.data_ptr(),
+            ev_kind.data_ptr(), ev_data.data_ptr(), ev_count.data_ptr(), ev_ovf.data_ptr(),
+            params, disc_rows, len(discs), ints, stream.cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"kerr_rk4_march kernel launch failed: CUDA error {err}")
+        launches += 1
+        if timed:
+            end.record(stream)
+            launch_timer.append((start, end))
+    return y_out, stop, steps, ev_kind, ev_data, ev_count, ev_ovf
+
+
+def kerr_rk4_march(
+    radius, a, horizon_epsilon, y0, h0, max_steps, max_radius, discs=(), spheres=(), vols=(),
+    h_min_frac=0.01, r_ref_scale=10.0, r_safe=0.0, opaque_stop=False, attempts=None,
+    resume=None, finalize=True, ckpt_every=0, compensated=False,
+):
+    """March N rays from y0 [N, 8] (position | covariant momentum).
+
+    Returns (y [N, 8], stop [N] i32, steps [N] i32, ev_kind [N, K] i32,
+    ev_data [N, K, 12], ev_count [N] i32, ev_overflow [N] bool).
+
+    r_safe > 0 enables the far-field lever; opaque_stop stops a lane at its
+    first recorded event (exact when every texture is opaque); `attempts`
+    bounds the iterations (default max_steps); finalize=False leaves
+    unfinished lanes RUNNING instead of BUDGET; compensated selects the
+    Kahan state update. A CUDA tensor goes through the kernel, a CPU tensor
+    through `march_plain`."""
+    _check_args(y0, discs, spheres, vols, resume, ckpt_every)
+    if y0.device.type == "cpu":
+        return march_plain(
+            radius, a, horizon_epsilon, y0, h0, max_steps, max_radius, discs=discs,
+            h_min_frac=h_min_frac, r_ref_scale=r_ref_scale, r_safe=r_safe,
+            opaque_stop=opaque_stop, attempts=attempts, finalize=finalize,
+            compensated=compensated,
+        )
+    if y0.device.type != "cuda":
+        raise ValueError(f"unsupported device {y0.device}")
+    attempts = max_steps if attempts is None else int(attempts)
+    return _march_cuda(
+        radius, a, horizon_epsilon, y0, h0, max_steps, max_radius, tuple(discs), h_min_frac,
+        r_ref_scale, r_safe, opaque_stop, attempts, finalize, compensated,
+    )

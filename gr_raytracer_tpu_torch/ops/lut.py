@@ -1,0 +1,23 @@
+"""Uniform-grid lookup-table interpolation (port of gr_raytracer_tpu/ops/lut.py).
+
+The blackbody log-T grid and the Novikov-Thorne radial grid are uniform, so
+the bracketing index is one multiply and two gathers per lookup.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def uniform_interp(x, x0, dx, values):
+    """Linear interpolation of `values` sampled at x0 + k·dx, clamped at the
+    ends. x: [...] queries; values: [L] or [L, C]. Returns [...] or [..., C]."""
+    length = values.shape[0]
+    t = (x - x0) / dx
+    idx = torch.clamp(torch.floor(t), 0, length - 2).to(torch.int64)
+    frac = torch.clamp(t - idx, 0.0, 1.0)
+    lo = values[idx]
+    hi = values[idx + 1]
+    if values.ndim == 2:
+        frac = frac[..., None]
+    return lo + frac * (hi - lo)

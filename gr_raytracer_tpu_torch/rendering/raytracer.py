@@ -1,0 +1,300 @@
+"""Render driver: chunked frame render, adaptive supersampling, output
+(port of the kernel branch of gr_raytracer_tpu/rendering/raytracer.py).
+
+  * Pass 1 traces the section of the pixel grid in fixed-size chunks through
+    the kernel path. The chunks form a one-deep pipeline: chunk i+1 is
+    queued on the card before chunk i's results are read on the host.
+  * The 8-neighbor contrast selection is a host stencil in numpy, faithful
+    to the reference's pair test (Michelson epsilon, luminance floor,
+    exclude_background_contrast).
+  * The stratified jitter is the reference's splitmix64 hash, bit-exact, in
+    host uint64; the jittered sub-rays run through the same chunked driver
+    and are averaged over their successful samples.
+  * Output: tone-mapped PNG, or Radiance .hdr of the raw XYZ.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from gr_raytracer_tpu_torch.rendering import camera as cam
+from gr_raytracer_tpu_torch.rendering import color as col
+from gr_raytracer_tpu_torch.rendering import fast_path
+from gr_raytracer_tpu_torch.rendering import integrator as integ
+from gr_raytracer_tpu_torch.rendering import scene as scn
+from gr_raytracer_tpu_torch.utils.png import png_encode
+
+MICHELSON_DENOMINATOR_EPSILON = 1e-4
+RELATIVE_MINIMUM_LUMINANCE_FRACTION = 1e-3
+
+_NEIGHBOR_SHIFTS = [(-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1)]
+
+
+# ---------------------------------------------------------------------------
+# splitmix64 stratified jitter (bit-exact against the reference)
+# ---------------------------------------------------------------------------
+
+
+def mix64(z: np.ndarray) -> np.ndarray:
+    z = np.asarray(z, np.uint64)
+    with np.errstate(over="ignore"):
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return z ^ (z >> np.uint64(31))
+
+
+def hash_pixel_samples(row, col, k) -> np.ndarray:
+    with np.errstate(over="ignore"):
+        z = mix64(np.asarray(row, np.uint64) + mix64(np.asarray(col, np.uint64) + mix64(np.asarray(k, np.uint64))))
+    return (z >> np.uint64(11)).astype(np.float64) * (1.0 / float(1 << 53))
+
+
+def stratified_sample_offsets(rows: np.ndarray, cols: np.ndarray, samples_per_axis: int):
+    """All n² jittered (dx, dy) offsets for each (row, col): [P, n²] each."""
+    n = samples_per_axis
+    sr, sc = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    idx = (sr * n + sc).ravel()  # [n²]
+    r = rows[:, None]
+    c = cols[:, None]
+    dx = (sc.ravel()[None, :] + hash_pixel_samples(r, c, 2 * idx[None, :])) / n
+    dy = (sr.ravel()[None, :] + hash_pixel_samples(r, c, 2 * idx[None, :] + 1)) / n
+    return dx, dy
+
+
+# ---------------------------------------------------------------------------
+# Adaptive-sampling pixel selection (host stencil)
+# ---------------------------------------------------------------------------
+
+
+def resolve_minimum_luminance(cfg, luminance: np.ndarray) -> float:
+    """Explicit floor, or 1e-3 × the 99th-percentile frame luminance
+    (kth-smallest with k = floor((len−1)·0.99), matching select_nth)."""
+    if cfg.minimum_luminance is not None:
+        return float(cfg.minimum_luminance)
+    flat = luminance.ravel()
+    if flat.size == 0:
+        return 0.0
+    k = int((flat.size - 1) * 0.99)
+    return RELATIVE_MINIMUM_LUMINANCE_FRACTION * float(np.partition(flat, k)[k])
+
+
+def collect_supersample_mask(cfg, luminance, alpha, ray_class, minimum_luminance):
+    """Boolean [H, W] mask of pixels with any triggering 8-neighbor pair."""
+    h, w = luminance.shape
+    mask = np.zeros((h, w), bool)
+    for dr, dc in _NEIGHBOR_SHIFTS:
+        rs, re = max(dr, 0), h + min(dr, 0)
+        cs, ce = max(dc, 0), w + min(dc, 0)
+        p_l = luminance[rs:re, cs:ce]
+        p_a = alpha[rs:re, cs:ce]
+        p_k = ray_class[rs:re, cs:ce]
+        q_l = luminance[rs - dr : re - dr, cs - dc : ce - dc]
+        q_a = alpha[rs - dr : re - dr, cs - dc : ce - dc]
+        q_k = ray_class[rs - dr : re - dr, cs - dc : ce - dc]
+
+        class_diff = p_k != q_k
+        lum_contrast = np.abs(p_l - q_l) / (p_l + q_l + MICHELSON_DENOMINATOR_EPSILON)
+        opa_contrast = np.abs(p_a - q_a)
+        visible = np.maximum(p_l, q_l) > minimum_luminance
+        contrast = visible & (
+            (lum_contrast > cfg.luminance_contrast_threshold)
+            | (opa_contrast > cfg.opacity_contrast_threshold)
+        )
+        if cfg.exclude_background_contrast:
+            contrast &= p_k != scn.ESCAPED
+        mask[rs:re, cs:ce] |= class_diff | contrast
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# Chunked tracing
+# ---------------------------------------------------------------------------
+
+
+class TraceStats(NamedTuple):
+    seconds: float
+    rays: int
+    ray_steps: int  # Σ per-ray march steps
+    stop_counts: np.ndarray  # rays per stop code (rendering/integrator.py)
+
+
+def _trace_chunk(scene, spec, row_f, col_f):
+    x, p = cam.pixel_rays(scene.camera, row_f, col_f)
+    s = fast_path.trace_rays_fast(scene, x, p, spec=spec)
+    return s.color, s.ray_class, s.stop_code, s.ev_overflow, s.steps
+
+
+def trace_pixels_chunked(scene, row_f, col_f, chunk_size: int, progress: bool = False):
+    """Trace arbitrary (fractional) pixel coordinates in fixed-size chunks.
+    Returns (color [N, 4], ray_class [N], ok [N], TraceStats) with numpy
+    arrays; ok=False marks rays whose shading failed, which supersample
+    averages exclude."""
+    spec = fast_path.scene_kernel_spec(scene)
+    n = row_f.shape[0]
+    device = scene.camera.position.device
+    dtype = scene.camera.position.dtype
+    on_cuda = device.type == "cuda"
+    # One upload per pass; coordinates are rounded to the scene dtype.
+    rows_d = torch.as_tensor(np.asarray(row_f, np.float64), device=device).to(dtype)
+    cols_d = torch.as_tensor(np.asarray(col_f, np.float64), device=device).to(dtype)
+    colors = np.zeros((n, 4), np.float32 if dtype == torch.float32 else np.float64)
+    classes = np.zeros((n,), np.int32)
+    ok_all = np.ones((n,), bool)
+    ray_steps = 0
+    stop_counts = np.zeros(integ.SATURATED + 1, np.int64)
+    t_start = time.perf_counter()
+
+    def _dispatch(start, end):
+        outs = _trace_chunk(scene, spec, rows_d[start:end], cols_d[start:end])
+        if not on_cuda:
+            return start, end, outs, None
+        # Queue the copies now, so they precede the next chunk on the stream.
+        host = tuple(o.to("cpu", non_blocking=True) for o in outs)
+        done = torch.cuda.Event()
+        done.record()
+        return start, end, host, done
+
+    def _drain(chunk):
+        nonlocal ray_steps
+        start, end, outs, done = chunk
+        if done is not None:
+            done.synchronize()
+        c, k, stop, ovf, steps = (o.numpy() for o in outs)
+        if ovf.any():
+            raise RuntimeError(
+                f"{int(ovf.sum())} rays overflowed the {fast_path.gm.MAX_EVENTS}-slot event "
+                "buffer; the overflow re-trace is not yet ported"
+            )
+        colors[start:end] = c
+        classes[start:end] = k
+        ok_all[start:end] = stop != integ.STEP_FAILED
+        ray_steps += int(steps.astype(np.int64).sum())
+        stop_counts[:] += np.bincount(stop, minlength=stop_counts.size)
+        if progress:
+            rate = end / max(time.perf_counter() - t_start, 1e-9)
+            print(f"\r  traced {end}/{n} rays ({rate:.0f} rays/s)", end="", file=sys.stderr)
+
+    pending = None
+    for start in range(0, n, chunk_size):
+        nxt = _dispatch(start, min(start + chunk_size, n))
+        if pending is not None:
+            _drain(pending)
+        pending = nxt
+    if pending is not None:
+        _drain(pending)
+    if progress:
+        print(file=sys.stderr)
+    stats = TraceStats(time.perf_counter() - t_start, n, ray_steps, stop_counts)
+    return colors, classes, ok_all, stats
+
+
+# ---------------------------------------------------------------------------
+# Render driver
+# ---------------------------------------------------------------------------
+
+
+class RenderOutput(NamedTuple):
+    color: np.ndarray  # [H, W, 4] CIE XYZA
+    ray_class: np.ndarray  # [H, W]
+    supersample_mask: Optional[np.ndarray]  # [H, W] bool (None if AA disabled)
+    stats: dict  # "pass1" / "aa": TraceStats of each traced pass
+
+
+def render_section(
+    scene,
+    from_row: int = 0,
+    from_col: int = 0,
+    to_row: Optional[int] = None,
+    to_col: Optional[int] = None,
+    chunk_size: int = 65536,
+    sampling_mask_color: Optional[tuple] = None,
+    progress: bool = False,
+) -> RenderOutput:
+    """Render [from_row, to_row) × [from_col, to_col) of the camera grid
+    with the scene's adaptive supersampling. With sampling_mask_color (an
+    XYZA tuple) selected pixels are painted instead of re-traced."""
+    camera = scene.camera
+    to_row = camera.rows if to_row is None else to_row
+    to_col = camera.columns if to_col is None else to_col
+    h, w = to_row - from_row, to_col - from_col
+    rr, cc = np.meshgrid(
+        np.arange(from_row, to_row, dtype=np.float64),
+        np.arange(from_col, to_col, dtype=np.float64),
+        indexing="ij",
+    )
+    colors, classes, _, pass1 = trace_pixels_chunked(
+        scene, rr.ravel(), cc.ravel(), chunk_size, progress
+    )
+    stats = {"pass1": pass1}
+    colors = colors.reshape(h, w, 4)
+    classes = classes.reshape(h, w)
+
+    cfg = scene.adaptive
+    if not (cfg.enabled or sampling_mask_color is not None):
+        return RenderOutput(colors, classes, None, stats)
+
+    minimum_luminance = resolve_minimum_luminance(cfg, colors[..., 1])
+    mask = collect_supersample_mask(cfg, colors[..., 1], colors[..., 3], classes, minimum_luminance)
+    if sampling_mask_color is not None:
+        out = colors.copy()
+        out[mask] = np.asarray(sampling_mask_color, colors.dtype)
+        return RenderOutput(out, classes, mask, stats)
+
+    sel_r, sel_c = np.nonzero(mask)
+    if sel_r.size:
+        n_spp = cfg.samples_per_axis**2
+        abs_r = sel_r + from_row
+        abs_c = sel_c + from_col
+        dx, dy = stratified_sample_offsets(abs_r, abs_c, cfg.samples_per_axis)
+        # Sub-pixel ray: row + (dy − ½), col + (dx − ½).
+        row_f = (abs_r[:, None] + (dy - 0.5)).ravel()
+        col_f = (abs_c[:, None] + (dx - 0.5)).ravel()
+        sub_colors, _, sub_ok, aa = trace_pixels_chunked(scene, row_f, col_f, chunk_size, progress)
+        stats["aa"] = aa
+        # Average over successful samples only; all-failed keeps the base.
+        ok = sub_ok.reshape(-1, n_spp)
+        n_ok = ok.sum(axis=1)
+        sums = (sub_colors.reshape(-1, n_spp, 4) * ok[..., None]).sum(axis=1)
+        averaged = sums / np.maximum(n_ok, 1)[:, None]
+        use = n_ok > 0
+        colors[sel_r[use], sel_c[use]] = averaged[use]
+    return RenderOutput(colors, classes, mask, stats)
+
+
+# ---------------------------------------------------------------------------
+# Output formats
+# ---------------------------------------------------------------------------
+
+
+def write_image(path: str, output_color: np.ndarray, tone_mapping: str = col.TONE_MAPPING_REINHARD):
+    """Write [H, W, 4] XYZA: Radiance .hdr (raw XYZ) or a tone-mapped PNG."""
+    if path.endswith(".hdr"):
+        write_radiance_hdr(path, output_color[..., :3].astype(np.float32))
+        return
+    if not path.endswith(".png"):
+        raise ValueError(f"unsupported image format: {path!r} (use .png or .hdr)")
+    img = col.xyza_buffer_to_srgb8(torch.from_numpy(np.ascontiguousarray(output_color)), method=tone_mapping)
+    with open(path, "wb") as f:
+        f.write(png_encode(img.numpy()))
+
+
+def write_radiance_hdr(path: str, rgb: np.ndarray):
+    """Minimal Radiance RGBE writer (flat scanlines)."""
+    h, w, _ = rgb.shape
+    rgb = np.maximum(rgb, 0.0).astype(np.float64)
+    v = rgb.max(axis=-1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        mant, exp = np.frexp(v)
+        scale = np.where(v >= 1e-32, mant * 256.0 / np.maximum(v, 1e-300), 0.0)
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    rgbe[..., :3] = np.clip(rgb * scale[..., None], 0, 255).astype(np.uint8)
+    rgbe[..., 3] = np.where(v >= 1e-32, exp + 128, 0).astype(np.uint8)
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {h} +X {w}\n".encode())
+        f.write(rgbe.tobytes())

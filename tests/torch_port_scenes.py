@@ -1,0 +1,94 @@
+"""Shared inputs for the tests that hold the PyTorch port against the JAX
+package: the same scene, built by both from the same numbers, in float64
+on the CPU."""
+
+import dataclasses
+import math
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from gr_raytracer_tpu import config as jcfg
+from gr_raytracer_tpu import presets as jpresets
+from gr_raytracer_tpu.geometry.kerr import Kerr as JKerr
+from gr_raytracer_tpu.rendering import camera as jcam
+from gr_raytracer_tpu_torch import config as tcfg
+from gr_raytracer_tpu_torch import presets as tpresets
+from gr_raytracer_tpu_torch.rendering import camera as tcam
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KERR_TOML = os.path.join(REPO, "scene-definitions", "kerr.toml")
+# The README's kerr.toml render command: camera pose and orientation.
+KERR_CAMERA = dict(camera_position=(-10.0, 0.0, -0.5), theta=1.52, psi=-1.57)
+CPU = torch.device("cpu")
+F64 = torch.float64
+# The port tests run small tensors: one intra-op thread each keeps parallel
+# test workers from oversubscribing the cores.
+torch.set_num_threads(1)
+
+
+def kerr_toml_scenes(rows, cols, max_steps=2000):
+    """(JAX scene, port scene) of scene-definitions/kerr.toml."""
+    j_opts = jcfg.RenderOptions(width=cols, height=rows, max_steps=max_steps, **KERR_CAMERA)
+    t_opts = tcfg.RenderOptions(width=cols, height=rows, max_steps=max_steps, **KERR_CAMERA)
+    j_scene = jcfg.create_scene(jcfg.load_config(KERR_TOML), j_opts, jnp.float64)
+    t_scene = tcfg.create_scene(tcfg.load_config(KERR_TOML), t_opts, F64, CPU)
+    return j_scene, t_scene
+
+
+def with_frame(j_scene, t_scene, rows, cols):
+    """The same kerr.toml scenes with their cameras rebuilt for a rows×cols
+    frame (static observer, the README camera angles)."""
+    kw = dict(alpha=math.pi / 4, rows=rows, columns=cols, theta=KERR_CAMERA["theta"], psi=KERR_CAMERA["psi"])
+    jg, tg = j_scene.geometry, t_scene.geometry
+    jpos, tpos = j_scene.camera.position, t_scene.camera.position
+    j_cam = jcam.build_camera(jg, jpos, jg.stationary_velocity(jpos), **kw)
+    t_cam = tcam.build_camera(tg, tpos, tg.stationary_velocity(tpos), **kw)
+    return j_scene.replace(camera=j_cam), dataclasses.replace(t_scene, camera=t_cam)
+
+
+def jax_flagship_params():
+    return {k: np.asarray(v) for k, v in jpresets.kerr_flagship_params(jnp.float64).items()}
+
+
+def port_flagship(rows, cols, max_steps=2000):
+    """The port's flagship scene, built from the JAX parameter pytree."""
+    params = tpresets.params_from_numpy(jax_flagship_params(), F64, CPU)
+    return tpresets.build_kerr_flagship(params, rows, cols, max_steps=max_steps, max_radius=40.0, step_size=0.05)
+
+
+def jax_flagship_camera(rows, cols):
+    """The JAX flagship camera alone (what presets.build_kerr_flagship
+    builds), without the scene's lookup tables."""
+    p = {k: jnp.asarray(v) for k, v in jax_flagship_params().items()}
+    geometry = JKerr(radius=p["radius"], a=p["a"], horizon_epsilon=jnp.asarray(1e-3))
+    pos = p["camera_position"]
+    return geometry, jcam.build_camera(
+        geometry, pos, geometry.stationary_velocity(pos), alpha=jnp.pi / 4, rows=rows,
+        columns=cols, phi=p["camera_phi"], theta=p["camera_theta"], psi=p["camera_psi"],
+        validate=False,
+    )
+
+
+def pixel_grid(rows, cols):
+    rr, cc = np.meshgrid(np.arange(rows, dtype=np.float64), np.arange(cols, dtype=np.float64), indexing="ij")
+    return rr.ravel(), cc.ravel()
+
+
+def t(a):
+    """numpy / JAX array -> CPU float64-or-int torch tensor (copied)."""
+    return torch.from_numpy(np.array(a))
+
+
+def lane_relative_error(ref, got):
+    """max |ref − got| over finite entries, scaled by each lane's largest
+    finite |ref| component; lanes are the leading axis."""
+    ref = np.asarray(ref, np.float64)
+    got = np.asarray(got, np.float64)
+    fin = np.isfinite(ref)
+    assert np.array_equal(fin, np.isfinite(got)), "non-finite entries differ"
+    scale = np.max(np.abs(np.where(fin, ref, 0.0)).reshape(ref.shape[0], -1), axis=1)
+    scale = np.maximum(scale, 1e-300).reshape((-1,) + (1,) * (ref.ndim - 1))
+    return float(np.max(np.where(fin, np.abs(ref - got), 0.0) / scale, initial=0.0))
