@@ -15,9 +15,21 @@ non-zero on failure:
   4. the main path: the CLI `render` of kerr.toml at 1000×1000, float32,
      adaptive supersampling on, into a temporary directory; the kernel's
      launch count must rise and the frame must show horizon, sky and disc;
-  5. one JSON line {"kernels": [...]} with each kernel's launches, error
+  5. K1 with checkpoints (every 128 steps) against its plain version on the
+     65,536 rays of the 256² flagship fit frame at its true parameters,
+     budget 2,000, float32 and float64: outputs and the checkpoint rows a
+     lane reaches must be equal;
+  6. the reverse sweep K2 against its plain version on the same rays, with
+     seeded cotangents on the final state of escaped lanes and on event
+     slot 0 of hit lanes, float64 and float32;
+  7. the gradient path: 10 steps of inverse.fit, the joint three-parameter
+     fit of scripts/grad_scale_probe.py --fit3 (256², budget 2,000,
+     float32, pyramid loss (4, 16), clip 1.0 ahead of Adam with the cosine
+     schedule (1e-2, 400, 0.01)) from its start1; K1 and K2 must launch
+     and every gradient must be finite;
+  8. one JSON line {"kernels": [...]} with each kernel's launches, error
      against its plain version, times and bound;
-  6. the last line: {"ok": true, "device": {...}}.
+  9. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -40,6 +52,17 @@ F64_STOP_AGREEMENT = 0.999  # stop codes and event counts, float64
 F64_RTOL = 1e-9  # state and event payloads on agreeing lanes, per-lane scale
 F32_STOP_AGREEMENT = 0.99  # docs/fastpath_accuracy.md kernel-against-lax bar
 F32_TONE_ATOL = 0.01  # tone-mapped color c/(1+c) on agreeing lanes
+# The gradient path: grad_scale_probe.py --fit3.
+FIT_SIZE = 256
+FIT_BUDGET = 2000
+FIT_STEPS = 10
+K_CKPT = 128
+A_MAX = 0.49  # a = A_MAX·tanh(u) keeps the spin sub-extremal
+FIT_TRUE = (0.45, 0.0, 1.52)  # a, v (T = 1e4·exp(v)), theta
+FIT_START1 = (0.30, -0.2231435513142097, 1.42)  # v = log(0.8)
+# Bars for K2 against its plain version: per-lane relative error of d_y0 on
+# grad_ok lanes, and relative error of the summed parameter partials.
+K2_BARS = {"float64": (1e-9, 0.999, 1e-9), "float32": (1e-3, 0.99, 1e-3)}
 FP32_LANES_PER_SM = 128  # Hopper: FP32 units per SM
 FP64_LANES_PER_SM = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -62,16 +85,13 @@ def nvidia_smi(query):
     return out.stdout.strip().splitlines()[0]
 
 
-def count_step_flops():
-    """Arithmetic operations of one RK4 step of the march, per ray, counted
-    by running the plain step on one lane and tallying every elementwise
+def count_flops(fn):
+    """Arithmetic operations that `fn` runs on one lane: every elementwise
     arithmetic op (add, sub, mul, div, neg, sqrt, rsqrt, pow, min/max,
-    clamp, abs) that torch executes. Compares, selects and copies are not
-    counted; event stores are rare and not counted."""
+    clamp, abs) that torch executes, counted by a dispatch mode. Compares,
+    selects and copies are not counted."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
-
-    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
 
     arith = {
         "add", "sub", "mul", "div", "neg", "sqrt", "rsqrt", "pow", "minimum", "maximum",
@@ -87,7 +107,26 @@ def count_step_flops():
                 Counter.flops += out.numel()
             return out
 
-    y = torch.tensor([[0.0, 8.0, 3.0, 0.5, -1.0, 0.9, 0.2, -0.1]], dtype=torch.float64).T
+    with Counter():
+        fn()
+    return Counter.flops
+
+
+def _one_lane():
+    import torch
+
+    return torch.tensor([[0.0, 8.0, 3.0, 0.5, -1.0, 0.9, 0.2, -0.1]], dtype=torch.float64).T
+
+
+def count_step_flops():
+    """Arithmetic operations of one RK4 step of the march, per ray, counted
+    on the plain step (count_flops); event stores are rare and not
+    counted."""
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+
+    y = _one_lane()
     c = {
         "radius": torch.tensor(1.0, dtype=torch.float64), "a": torch.tensor(0.499, dtype=torch.float64),
         "h0": torch.tensor(1.0, dtype=torch.float64), "r_ref": torch.tensor(10.0, dtype=torch.float64),
@@ -102,9 +141,32 @@ def count_step_flops():
         ev_data=torch.zeros((1, 8, 12), dtype=torch.float64), ev_count=torch.zeros(1, dtype=torch.int32),
         ev_ovf=torch.zeros(1, dtype=torch.bool), comp=torch.zeros_like(y),
     )
-    with Counter():
-        gm._plain_step(c, lanes, ())
-    return Counter.flops
+    return count_flops(lambda: gm._plain_step(c, lanes, ()))
+
+
+def count_vjp_flops():
+    """Arithmetic operations of one reverse step of the sweep, per ray: the
+    plain step map with its slot-0 payload (ops/geodesic_adjoint.py
+    _step_with_payload) and its VJP by torch.autograd, on one lane."""
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import geodesic_adjoint as gadj
+    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+
+    f64 = torch.float64
+    y = _one_lane().requires_grad_(True)
+    r = torch.tensor([1.0], dtype=f64, requires_grad=True)
+    a = torch.tensor([0.45], dtype=f64, requires_grad=True)
+    disc = (gm.DiscSpec(1.0, 6.0, 0),)
+
+    def vjp():
+        y_new, payload = gadj._step_with_payload(
+            disc, (), 1.0, 0.01, 10.0, 30.0, torch.zeros(1, dtype=torch.int32), r, a, y,
+            torch.ones(1, dtype=torch.bool),
+        )
+        torch.autograd.grad((y_new, payload), (r, a, y), (torch.ones_like(y_new), torch.ones_like(payload)))
+
+    return count_flops(vjp)
 
 
 def card_peak_flops(dtype):
@@ -234,6 +296,252 @@ def compare_march(dtype, compensated, flops_per_step):
     return res
 
 
+
+def fit_frame_inputs(dtype):
+    """(spec, y0) of the 65,536 rays of the 256² flagship fit frame at its
+    true parameters, cost-sorted as the differentiable path sorts them."""
+    import torch
+
+    from gr_raytracer_tpu_torch import presets
+    from gr_raytracer_tpu_torch.rendering import camera as cam
+    from gr_raytracer_tpu_torch.rendering import fast_path
+
+    scene = presets.build_kerr_flagship(
+        presets.kerr_flagship_params(dtype, "cuda"), FIT_SIZE, FIT_SIZE, max_steps=FIT_BUDGET,
+        max_radius=40.0, step_size=0.05,
+    )
+    rr, cc = torch.meshgrid(
+        torch.arange(FIT_SIZE, dtype=dtype, device="cuda"),
+        torch.arange(FIT_SIZE, dtype=dtype, device="cuda"), indexing="ij",
+    )
+    x, p = cam.pixel_rays(scene.camera, rr.ravel(), cc.ravel())
+    _, y0, _, _ = fast_path._prepare_march(scene, x, p)
+    return fast_path.scene_kernel_spec(scene), y0.contiguous()
+
+
+def compare_march_ckpt(dtype):
+    """K1 with checkpoints against march_plain on the fit frame; returns
+    (result dict, the plain march's outputs, spec)."""
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+
+    spec, y0 = fit_frame_inputs(dtype)
+    args = (spec.radius, spec.a, spec.horizon_epsilon, y0)
+    kw = dict(h0=1.0, max_steps=FIT_BUDGET, max_radius=40.0, discs=spec.discs, r_safe=spec.r_safe,
+              opaque_stop=True, ckpt_every=K_CKPT)
+    got = gm.kerr_rk4_march(*args, **kw)
+    torch.cuda.synchronize()
+    kernel_ms, got = time_cuda(lambda: gm.kerr_rk4_march(*args, **kw), reps=3)
+    ref = gm.march_plain(*args, **kw)
+    steps = ref[2].long()
+    reached = torch.arange(ref[7].shape[0], device="cuda")[:, None] * K_CKPT < steps[None]
+    same = lambda g, r: (g == r) | (g.isnan() & r.isnan()) if g.is_floating_point() else g == r
+    rows_equal = bool(torch.where(reached[:, None, :], same(got[7], ref[7]), True).all())
+    outputs_equal = all(bool(same(g, r).all()) for g, r in zip(got[:7], ref[:7]))
+    res = {
+        "dtype": str(dtype).replace("torch.", ""), "kernel_ms": kernel_ms,
+        "outputs_equal": outputs_equal, "ckpt_rows_equal": rows_equal,
+        "ckpt_rows_reached": int(reached.sum()), "max_steps_taken": int(steps.max()),
+        "sum_steps": int(steps.sum()), "stops": torch.bincount(ref[1], minlength=8).tolist(),
+    }
+    res["ok"] = outputs_equal and rows_equal
+    return res, ref, spec
+
+
+def compare_adjoint(dtype, march, spec, flops_step, flops_vjp):
+    """K2 against ks_march_bwd_plain on the checkpoints of `march` (the
+    plain K1 outputs of the fit frame), with seeded cotangents."""
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import geodesic_adjoint as gadj
+
+    y_f, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, ckpt = march
+    grad_ok, has_ev, kind0 = gadj.sweep_lanes(stop, ev_kind, ev_count)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    n = y_f.shape[0]
+    ct_y = torch.randn((n, 8), generator=gen, dtype=dtype, device="cuda") * (stop == 2)[:, None]
+    ct_ev = torch.randn((n, 12), generator=gen, dtype=dtype, device="cuda") * (has_ev != 0)[:, None]
+    cfg = gadj.SweepConfig(1.0, FIT_BUDGET, spec.discs, spec.r_safe, 0.01, 10.0, K_CKPT)
+    args = (ckpt, ct_y.contiguous(), ct_ev.contiguous(), steps, grad_ok, has_ev, kind0,
+            spec.radius, spec.a, cfg)
+    got = gadj.ks_march_bwd(*args)  # first launch: checks the kernel runs
+    torch.cuda.synchronize()
+    kernel_ms, got = time_cuda(lambda: gadj.ks_march_bwd(*args), reps=3)
+    t0 = time.perf_counter()
+    ref = gadj.ks_march_bwd_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+
+    ok_lanes = grad_ok != 0
+    d_g, d_r = got[0][ok_lanes], ref[0][ok_lanes]
+    scale = d_r.abs().amax(dim=1).clamp(min=1e-300)
+    lane_err = (d_g - d_r).abs().amax(dim=1) / scale
+    rel = lambda g, r: abs(float(g.double().sum()) - float(r.double().sum())) / max(abs(float(r.double().sum())), 1e-300)
+    name = str(dtype).replace("torch.", "")
+    lane_tol, share, sum_tol = K2_BARS[name]
+    res = {
+        "dtype": name, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "grad_ok_lanes": int(ok_lanes.sum()),
+        "lanes_within_tol": float((lane_err <= lane_tol).double().mean()),
+        "lane_rel_err_max": float(lane_err.max()),
+        "lane_rel_err_q999": float(torch.quantile(lane_err.double(), 0.999)),
+        "max_abs_err": float((d_g - d_r).abs().max()),
+        "d_radius": [float(got[1].double().sum()), float(ref[1].double().sum())],
+        "d_a": [float(got[2].double().sum()), float(ref[2].double().sum())],
+        "d_radius_rel_err": rel(got[1], ref[1]), "d_a_rel_err": rel(got[2], ref[2]),
+    }
+    # Bound: per grad_ok lane, `steps` re-forward steps and `steps` reverse
+    # steps of work; bytes are the checkpoint reads, the scratch traffic
+    # (each re-forward step writes its state, each reverse step reads it),
+    # the lane inputs and the outputs.
+    elem = ckpt.element_size()
+    s_ok = steps.long()[ok_lanes]
+    ops = float(s_ok.sum()) * (flops_step + flops_vjp)
+    ckpt_rows = float(((s_ok + K_CKPT - 1) // K_CKPT).sum())
+    bytes_moved = (ckpt_rows * 8 + 2.0 * 8 * float(s_ok.sum())) * elem + n * ((8 + 12 + 8 + 2) * elem + 16)
+    ops_ms = ops / card_peak_flops(dtype) * 1e3
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    res["bound_ms"] = max(ops_ms, bytes_ms)
+    res["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    res["ok"] = (res["lanes_within_tol"] >= share and res["d_radius_rel_err"] <= sum_tol
+                 and res["d_a_rel_err"] <= sum_tol)
+    return res
+
+
+def fit_step_breakdown(render, target, params):
+    """Where one fit step's time goes: host clock around each part, each
+    ended by a synchronize; then the device's busy share of one more step,
+    from a torch.profiler trace (the sum of device time over the step's
+    wall time; None when the trace shows no device time)."""
+    import torch
+
+    from gr_raytracer_tpu_torch import inverse
+
+    loss_fn = inverse.pyramid_image_loss(FIT_SIZE, FIT_SIZE, (4, 16))
+    leaves = [v.requires_grad_(True) for v in params.values()]
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    def step():
+        color = render(params, mark)
+        mark("rays_march_shade")
+        loss = loss_fn(color, target)
+        mark("loss")
+        torch.autograd.grad(loss, leaves)
+        mark("backward")
+
+    step()
+    split = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
+    mark = lambda name: None  # the profiled step runs without the synchronizes
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
+    return split, (device_us / wall_us if device_us > 0 else None)
+
+
+def fit_phase():
+    """10 steps of the joint three-parameter fit (grad_scale_probe.py
+    --fit3, start1) through inverse.fit on the card; returns its summary."""
+    import math
+
+    import torch
+
+    from gr_raytracer_tpu_torch import inverse, presets
+    from gr_raytracer_tpu_torch.ops import geodesic_adjoint as gadj
+    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+    from gr_raytracer_tpu_torch.rendering import camera as cam
+    from gr_raytracer_tpu_torch.rendering import fast_path
+
+    dt = torch.float32
+    base = presets.kerr_flagship_params(dt, "cuda")
+    spec = fast_path.scene_kernel_spec(presets.build_kerr_flagship(base, FIT_SIZE, FIT_SIZE, max_steps=FIT_BUDGET))
+    rr, cc = torch.meshgrid(
+        torch.arange(FIT_SIZE, dtype=dt, device="cuda"), torch.arange(FIT_SIZE, dtype=dt, device="cuda"),
+        indexing="ij",
+    )
+    rf, cf = rr.ravel(), cc.ravel()
+
+    def to_phys(p):
+        return A_MAX * torch.tanh(p["u_a"]), 1e4 * torch.exp(p["v_t"]), p["theta"]
+
+    def render(p, mark=lambda name: None):
+        a, temp, theta = to_phys(p)
+        full = dict(base, a=a, disc_temperature=temp, camera_theta=theta)
+        scene = presets.build_kerr_flagship(full, FIT_SIZE, FIT_SIZE, max_steps=FIT_BUDGET, max_radius=40.0, step_size=0.05)
+        mark("scene_build")
+        x, m = cam.pixel_rays(scene.camera, rf, cf)
+        return fast_path.trace_rays_fast_diff(scene, x, m, spec=spec, k_ckpt=K_CKPT).color
+
+    as_params = lambda a, v, th: {
+        "u_a": torch.tensor(math.atanh(a / A_MAX), dtype=dt, device="cuda"),
+        "v_t": torch.tensor(v, dtype=dt, device="cuda"),
+        "theta": torch.tensor(th, dtype=dt, device="cuda"),
+    }
+    with torch.no_grad():
+        target = render(as_params(*FIT_TRUE))
+    torch.cuda.synchronize()
+
+    rows = []
+    clock = [time.perf_counter()]
+
+    def callback(step, loss, params, grads):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        a, temp, theta = (float(v.detach()) for v in to_phys(params))
+        rows.append({
+            "step": step, "loss": loss, "a": a, "disc_temperature": temp, "camera_theta": theta,
+            "grads": {k: float(g) for k, g in grads.items()}, "s": now - clock[0],
+            "k1_ms": sum(s.elapsed_time(e) for s, e in gm.launch_timer),
+            "k2_ms": sum(s.elapsed_time(e) for s, e in gadj.launch_timer),
+        })
+        gm.launch_timer.clear()
+        gadj.launch_timer.clear()
+        print(json.dumps(rows[-1]), flush=True)
+        clock[0] = time.perf_counter()
+
+    gm.launches = 0
+    gadj.launches = 0
+    gm.launch_timer, gadj.launch_timer = [], []
+    _, losses = inverse.fit(
+        render, as_params(*FIT_START1), target, trainable=("u_a", "v_t", "theta"), steps=FIT_STEPS,
+        learning_rate=inverse.cosine_decay_schedule(1e-2, 400, 0.01), clip_norm=1.0,
+        loss_fn=inverse.pyramid_image_loss(FIT_SIZE, FIT_SIZE, (4, 16)), callback=callback,
+    )
+    k1_launches, k2_launches = gm.launches, gadj.launches
+    gm.launch_timer = gadj.launch_timer = None
+    split, busy = fit_step_breakdown(render, target, as_params(*FIT_START1))
+    mean = lambda key: sum(r[key] for r in rows) / len(rows)
+    summary = {
+        "frame": f"{FIT_SIZE}x{FIT_SIZE}", "max_steps": FIT_BUDGET, "steps": FIT_STEPS,
+        "k1_launches": k1_launches, "k2_launches": k2_launches,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "final": {k: rows[-1][k] for k in ("a", "disc_temperature", "camera_theta")},
+        "s_per_step": mean("s"), "k1_ms_per_step": mean("k1_ms"), "k2_ms_per_step": mean("k2_ms"),
+        "step_breakdown_s": split, "device_busy_share": busy,
+    }
+    finite = all(math.isfinite(g) for r in rows for g in r["grads"].values())
+    moving = all(any(r["grads"][k] != 0.0 for r in rows) for k in ("u_a", "v_t", "theta"))
+    summary["grads_finite"], summary["grads_nonzero"] = finite, moving
+    if not finite:
+        fail(f"a fit gradient is not finite: {rows}")
+    if not moving:
+        fail(f"a trainable's gradient is zero on every step: {rows}")
+    if k1_launches == 0 or k2_launches == 0:
+        fail(f"the fit launched K1 {k1_launches} and K2 {k2_launches} times")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"the fit's loss did not fall: {losses}")
+    return summary
+
+
 def main():
     import numpy as np
     import torch
@@ -267,7 +575,7 @@ def main():
     for src, (secs, log) in cuda_build.BUILD_LOG.items():
         print(f"  {src}: nvcc {secs:.1f}s")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print("   ", line.strip())
 
     phase("3. K1 against its plain version")
@@ -328,19 +636,57 @@ def main():
     }
     print(json.dumps(main), flush=True)
 
-    phase("5. kernels")
+    phase("5. K1 with checkpoints against its plain version")
+    marches = {}
+    for dtype in (torch.float32, torch.float64):
+        r, marches[dtype], fit_spec = compare_march_ckpt(dtype)
+        print(json.dumps(r), flush=True)
+        if not r["ok"]:
+            fail(f"K1 with checkpoints disagrees with its plain version: {r}")
+
+    phase("6. K2 against its plain version")
+    flops_vjp = count_vjp_flops()
+    print(f"flops per ray of a reverse step's VJP (plain step map + VJP, counted): {flops_vjp}")
+    sweeps = {}
+    for dtype in (torch.float64, torch.float32):
+        r = compare_adjoint(dtype, marches[dtype], fit_spec, flops_per_step, flops_vjp)
+        sweeps[dtype] = r
+        print(json.dumps(r), flush=True)
+        if not r["ok"]:
+            fail(f"K2 disagrees with its plain version: {r}")
+    del marches
+
+    phase("7. gradient path: 10 steps of the 256² three-parameter fit")
+    fit = fit_phase()
+    print(json.dumps(fit), flush=True)
+
+    phase("8. kernels")
     prod = variants[(torch.float32, False)]
+    sweep = sweeps[torch.float32]
     kernels = [{
         "name": "kerr_rk4_march",
         "route": "cuda",
         "source": "gr_raytracer_tpu_torch/csrc/kerr_rk4_march.cu",
         "replaces": "gr_raytracer_tpu/ops/geodesic_pallas.py:790",
-        "launches": launches,
+        "launches": launches + fit["k1_launches"],
+        "launches_by_path": {"render": launches, "fit": fit["k1_launches"]},
         "max_abs_err": max(prod["max_abs_err"], variants[(torch.float32, True)]["max_abs_err"]),
         "ms": prod["kernel_ms"],
         "plain_ms": prod["plain_ms"],
         "bound_ms": prod["bound_ms"],
         "bound_by": prod["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "kerr_ks_adjoint",
+        "route": "cuda",
+        "source": "gr_raytracer_tpu_torch/csrc/kerr_ks_adjoint.cu",
+        "replaces": "gr_raytracer_tpu/ops/geodesic_adjoint.py:370",
+        "launches": fit["k2_launches"],
+        "max_abs_err": sweep["max_abs_err"],
+        "ms": sweep["kernel_ms"],
+        "plain_ms": sweep["plain_ms"],
+        "bound_ms": sweep["bound_ms"],
+        "bound_by": sweep["bound_by"],
         "library_ms": None,
     }]
     print(f"wall {time.perf_counter() - t_all:.1f}s")

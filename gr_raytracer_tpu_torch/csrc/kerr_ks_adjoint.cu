@@ -1,0 +1,283 @@
+// Checkpointed reverse sweep of the Kerr-Schild march: the adjoint λ and
+// the parameter partials ∂L/∂radius, ∂L/∂a for every lane.
+//
+// Replaces the TPU kernel gr_raytracer_tpu/ops/geodesic_adjoint.py
+// make_ks_march_diff (pallas_call body _bwd_kernel). The plain torch
+// version is gr_raytracer_tpu_torch/ops/geodesic_adjoint.py::
+// ks_march_bwd_plain.
+//
+// Per lane (one thread, as in the march kernel kerr_rk4_march.cu), the
+// segments of K steps run in reverse order. A segment loads its checkpoint
+// (the pre-step state the march wrote every K steps), re-forwards its
+// k_eff = min(K, steps − seg·K) steps with the march's own arithmetic
+// (kerr_ks_common.cuh, the same -fmad=false build), so the trajectory is
+// replayed bit for bit, and keeps the pre-step states in a global scratch
+// buffer [K, 8, N], lanes fastest so that the accesses coalesce. Then it
+// walks those states backwards and applies the VJP of the step map
+// G: y ↦ (y_new, slot-0 payload). The TPU kernel gates a segment on its
+// block's max(steps); gating per lane on seg·K < steps is equivalent,
+// because an inactive step is the identity on λ with zero partials.
+//
+// The step VJP is built from forward-mode dual numbers: G is templated on
+// its scalar type, and each reverse step evaluates it ten times in
+// Dual<T>, seeded with the eight state directions, radius and a. Column j
+// of the Jacobian contracts with the cotangents:
+//     λ_new_j = Σ_i λ_i ∂y_new_i/∂y_j + Σ_m ct_m ∂payload_m/∂y_j,
+// and the same contraction along radius and a gives the per-step
+// partials. Exact to rounding, and about twenty times a forward step per
+// reverse step: a hand-written reverse-mode step is the lever for later.
+//
+// What bounds it on the card: operations (each reverse step costs ten dual
+// step evaluations against a few hundred bytes of scratch traffic).
+//
+// Conventions of the JAX VJP kept here: masks are selects (the untaken
+// branch gets no derivative); the payload guards (|dz| ≥ 1e-12, the
+// sqrt(max(·, 1e-30)) guards, disc bounds selected by the slot-0 kind);
+// a lane whose state is not finite passes λ through; the payload
+// cotangent enters only at the lane's last step on lanes with an event;
+// the trust region on every λ component and both per-step partials, and
+// once on the incoming cotangent (the TPU kernel applies it also on steps
+// where the lane is inactive). Partials are written per lane, without
+// atomics, so the result is deterministic; the wrapper sums them.
+
+#include "kerr_ks_common.cuh"
+
+namespace {
+
+using namespace ks;
+
+constexpr int kThreads = 128;
+constexpr double kLamCap = 1e15;  // LAM_CAP in ops/geodesic_adjoint.py
+
+template <typename T>
+struct AdjParams {
+  T radius, a;
+  StepRule<T> rule;  // h0, h_min_frac, r_ref, r_safe
+  T disc_inner[kMaxDiscs];
+  T disc_outer[kMaxDiscs];
+  int disc_kind[kMaxDiscs];
+  int n_discs;
+  int n_seg;
+  int k_ckpt;
+};
+
+__device__ __forceinline__ float abs_(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_(double x) { return fabs(x); }
+
+template <typename T>
+__device__ __forceinline__ bool all_finite(const T* y) {
+  bool ok = true;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) ok = ok && is_finite(y[i]);
+  return ok;
+}
+
+// The step map G (ops/geodesic_adjoint.py _step_with_payload): y_new and,
+// when `with_payload`, the slot-0 disc payload [point3 | p_interp4 | uv2 |
+// seg3] (_disc_payload).
+template <typename S, typename T>
+__device__ __forceinline__ void step_map(const AdjParams<T>& P, S radius, S a, const S* y, int kind0,
+                                         bool with_payload, S* y_new, S* payload) {
+  const S m = S(0.5) * radius;
+  const S r_plus = m + sqrt_(nmax(m * m - a * a, S(1e-30)));
+  const S r_here = ks_radius(a, y[1], y[2], y[3]);
+  S delta[8];
+  rk4_delta<true>(P.rule, radius, a, r_plus, r_here, y, delta);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) y_new[i] = y[i] + delta[i];
+  if (!with_payload) return;
+
+  S p_prev[4], p_new[4];
+  momentum_contra(radius, a, y, p_prev);
+  momentum_contra(radius, a, y_new, p_new);
+  const S den_raw = y[3] - y_new[3];
+  const bool ok = abs_(value(den_raw)) >= T(1e-12);
+  const S frac = (ok ? y[3] : S(0)) / (ok ? den_raw : S(1));
+  const S px = y[1] + frac * (y_new[1] - y[1]);
+  const S py = y[2] + frac * (y_new[2] - y[2]);
+  const S rr = sqrt_(nmax(px * px + py * py, S(1e-30)));
+  const S phi = atan2_(py, px);
+  T inner = P.disc_inner[0], outer = P.disc_outer[0];
+  for (int d = 1; d < P.n_discs; ++d) {
+    if (kind0 == P.disc_kind[d]) {
+      inner = P.disc_inner[d];
+      outer = P.disc_outer[d];
+    }
+  }
+  const S r_norm = (rr - S(inner)) / S(outer - inner);
+  payload[0] = px;
+  payload[1] = py;
+  payload[2] = S(0);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) payload[3 + i] = p_prev[i] + frac * (p_new[i] - p_prev[i]);
+  payload[7] = S(0.5) + S(0.5) * r_norm * cos_(phi);
+  payload[8] = S(0.5) + S(0.5) * r_norm * sin_(phi);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) payload[9 + i] = y_new[1 + i] - y[1 + i];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+adjoint_kernel(const AdjParams<T> P, const T* __restrict__ ckpt, const T* __restrict__ ct_y,
+               const T* __restrict__ ct_ev, const int32_t* __restrict__ steps_in,
+               const int32_t* __restrict__ grad_ok, const int32_t* __restrict__ has_ev,
+               const int32_t* __restrict__ ev_kind0, int64_t n, T* __restrict__ d_y0,
+               T* __restrict__ d_radius, T* __restrict__ d_a, T* __restrict__ scratch) {
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  const T cap = T(kLamCap);
+
+  T lam[8];
+  bool trusted = true;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    lam[i] = ct_y[lane * 8 + i];
+    trusted = trusted && abs_(lam[i]) < cap;
+  }
+  if (!trusted) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) lam[i] = T(0);
+  }
+  T dr = T(0), da = T(0);
+  const int steps = steps_in[lane];
+  const int K = P.k_ckpt;
+
+  if (grad_ok[lane] != 0 && steps > 0) {
+    const bool hit = has_ev[lane] != 0;
+    const int kind0 = ev_kind0[lane];
+    T ct_p[kEventWidth];
+#pragma unroll
+    for (int q = 0; q < kEventWidth; ++q) ct_p[q] = hit ? ct_ev[lane * kEventWidth + q] : T(0);
+    // r₊ as the march computes it, for the bit-exact re-forward.
+    const T m = T(0.5) * P.radius;
+    const T r_plus = m + sqrt_(nmax(m * m - P.a * P.a, T(0)));
+    const int n_seg_lane = min((steps + K - 1) / K, P.n_seg);
+
+    for (int seg = n_seg_lane - 1; seg >= 0; --seg) {
+      const int start = seg * K;
+      const int k_eff = min(K, steps - start);
+      T y[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) y[i] = ckpt[((int64_t)seg * 8 + i) * n + lane];
+
+      // Re-forward, keeping the pre-step states; a non-finite lane stays
+      // frozen, as in the march's where-masks.
+      for (int k = 0; k < k_eff; ++k) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) scratch[((int64_t)k * 8 + i) * n + lane] = y[i];
+        if (all_finite(y)) {
+          const T r_here = ks_radius(P.a, y[1], y[2], y[3]);
+          T delta[8];
+          rk4_delta<false>(P.rule, P.radius, P.a, r_plus, r_here, y, delta);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) y[i] = y[i] + delta[i];
+        }
+      }
+
+      // Reverse sweep over the segment.
+      for (int k = k_eff - 1; k >= 0; --k) {
+        T yg[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) yg[i] = scratch[((int64_t)k * 8 + i) * n + lane];
+        if (!all_finite(yg)) continue;  // identity on λ
+        const bool stored = hit && (start + k == steps - 1);
+        T out[10];
+        for (int j = 0; j < 10; ++j) {
+          Dual<T> yd[8], yn[8], pl[kEventWidth];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) yd[i] = Dual<T>(yg[i], i == j ? T(1) : T(0));
+          const Dual<T> rd(P.radius, j == 8 ? T(1) : T(0));
+          const Dual<T> ad(P.a, j == 9 ? T(1) : T(0));
+          step_map(P, rd, ad, yd, kind0, stored, yn, pl);
+          T acc = T(0);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc = acc + lam[i] * yn[i].d;
+          if (stored) {
+#pragma unroll
+            for (int q = 0; q < kEventWidth; ++q) acc = acc + ct_p[q] * pl[q].d;
+          }
+          out[j] = acc;
+        }
+        bool trust = true;
+#pragma unroll
+        for (int j = 0; j < 10; ++j) trust = trust && abs_(out[j]) < cap;
+        if (trust) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) lam[i] = out[i];
+          dr = dr + out[8];
+          da = da + out[9];
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) lam[i] = T(0);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) d_y0[lane * 8 + i] = lam[i];
+  d_radius[lane] = dr;
+  d_a[lane] = da;
+}
+
+// params: radius, a, h0, h_min_frac, r_ref, r_safe. discs: n_discs rows of
+// (inner, outer, kind). ints: n_seg, k_ckpt. ckpt [n_seg, 8, n]; ct_y and
+// d_y0 [n, 8]; ct_ev [n, 12]; steps, grad_ok, has_ev, ev_kind0 i32 [n];
+// d_radius, d_a [n]; scratch [k_ckpt, 8, n].
+template <typename T>
+int launch(const void* ckpt, const void* ct_y, const void* ct_ev, const void* steps,
+           const void* grad_ok, const void* has_ev, const void* ev_kind0, int64_t n, void* d_y0,
+           void* d_radius, void* d_a, void* scratch, const double* params, const double* discs,
+           int n_discs, const int* ints, void* stream) {
+  if (n_discs < 1 || n_discs > kMaxDiscs || ints[0] < 0 || ints[1] < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  AdjParams<T> P;
+  P.radius = T(params[0]);
+  P.a = T(params[1]);
+  P.rule.h0 = T(params[2]);
+  P.rule.h_min_frac = T(params[3]);
+  P.rule.r_ref = T(params[4]);
+  P.rule.r_safe = T(params[5]);
+  for (int i = 0; i < kMaxDiscs; ++i) {
+    const bool on = i < n_discs;
+    P.disc_inner[i] = on ? T(discs[3 * i]) : T(0);
+    P.disc_outer[i] = on ? T(discs[3 * i + 1]) : T(0);
+    P.disc_kind[i] = on ? (int)discs[3 * i + 2] : -1;
+  }
+  P.n_discs = n_discs;
+  P.n_seg = ints[0];
+  P.k_ckpt = ints[1];
+  if (n > 0) {
+    const int64_t blocks = (n + kThreads - 1) / kThreads;
+    adjoint_kernel<T><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        P, (const T*)ckpt, (const T*)ct_y, (const T*)ct_ev, (const int32_t*)steps,
+        (const int32_t*)grad_ok, (const int32_t*)has_ev, (const int32_t*)ev_kind0, n, (T*)d_y0,
+        (T*)d_radius, (T*)d_a, (T*)scratch);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int kerr_ks_adjoint_f32(const void* ckpt, const void* ct_y, const void* ct_ev, const void* steps,
+                        const void* grad_ok, const void* has_ev, const void* ev_kind0, int64_t n,
+                        void* d_y0, void* d_radius, void* d_a, void* scratch,
+                        const double* params, const double* discs, int n_discs, const int* ints,
+                        void* stream) {
+  return launch<float>(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, n, d_y0, d_radius,
+                       d_a, scratch, params, discs, n_discs, ints, stream);
+}
+
+int kerr_ks_adjoint_f64(const void* ckpt, const void* ct_y, const void* ct_ev, const void* steps,
+                        const void* grad_ok, const void* has_ev, const void* ev_kind0, int64_t n,
+                        void* d_y0, void* d_radius, void* d_a, void* scratch,
+                        const double* params, const double* discs, int n_discs, const int* ints,
+                        void* stream) {
+  return launch<double>(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, n, d_y0, d_radius,
+                        d_a, scratch, params, discs, n_discs, ints, stream);
+}
+
+}  // extern "C"

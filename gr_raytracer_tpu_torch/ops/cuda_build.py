@@ -3,8 +3,8 @@
 Each source under csrc/ is compiled by nvcc into a shared library with a
 plain C interface (no PyTorch headers: seconds instead of minutes) and
 loaded with ctypes. Libraries are cached in build/torch_kernels/ under a
-hash of the source and the flags, so a changed source rebuilds and an
-unchanged one loads at once. `build_all` starts one nvcc per source, all at
+hash of the source, every shared header (csrc/*.cuh) and the flags, so a
+changed source or header rebuilds and an unchanged one loads at once. `build_all` starts one nvcc per source, all at
 the same time.
 """
 
@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("kerr_rk4_march.cu",)
+SOURCES = ("kerr_rk4_march.cu", "kerr_ks_adjoint.cu")
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -48,8 +48,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + repr(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(repr(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for name in (source, *headers):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    digest = h.hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
 

@@ -1,0 +1,365 @@
+"""Reverse mode through the Kerr-Schild march: checkpointed reverse sweep
+(counterpart of gr_raytracer_tpu/ops/geodesic_adjoint.py, Kerr-Schild
+part).
+
+  forward   ops/geodesic_march.kerr_rk4_march with ckpt_every = K: the
+            production march (K1) plus the pre-step state every K
+            iterations, [S, 8, N].
+  backward  the reverse sweep (K2): per lane, segments in reverse order;
+            each re-forwards its steps from the checkpoint, replaying the
+            march bit for bit, then walks them backwards applying the VJP of
+            the whole step (RK4, the radius-scaled h, the far-field lever
+            and the slot-0 disc payload) to carry the adjoint λ and the
+            per-lane partials ∂L/∂radius, ∂L/∂a.
+
+For tensors on the card the backward launches the hand-written CUDA kernel
+csrc/kerr_ks_adjoint.cu; for tensors on the CPU it runs
+`ks_march_bwd_plain`, the same sweep in plain torch with torch.func.vjp of
+the plain step.
+
+The VJP differentiates the discrete march (same steps, same masks), not a
+continuous adjoint. Stop codes, the crossing step and the cost sort are
+locally constant. Scope: Kerr-Schild scenes with thin discs whose textures
+are all opaque, so that the only shaded event is slot 0, recorded at the
+lane's last step. The sphere payload is not yet ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+from gr_raytracer_tpu_torch.rendering import integrator as integ
+
+K_CKPT = 128  # steps per checkpoint segment
+# Adjoint trust region: a λ component or per-step parameter partial at or
+# beyond this is treated as diverged, and the lane is retired from the
+# sums (|x| < CAP is False for NaN, so non-finite values retire too). A
+# near-critical (photon-ring) lane's λ grows like the product of its step
+# Jacobians and overflows f32 within a few thousand reverse steps; its
+# forward is chaotic beyond f32 and carries no usable signal.
+LAM_CAP = 1e15
+
+# Launches of the CUDA kernel (the plain version does not count).
+launches = 0
+# When set to a list, each kernel launch appends its (start, end) CUDA events.
+launch_timer = None
+
+
+class SweepConfig(NamedTuple):
+    """The static configuration of a differentiable march."""
+
+    h0: float
+    max_steps: int
+    discs: tuple
+    r_safe: float
+    h_min_frac: float
+    r_ref_scale: float
+    k_ckpt: int
+
+
+# ---------------------------------------------------------------------------
+# The step map G: y ↦ (y_new, slot-0 payload), in plain torch. States are
+# [8, N] (component-major); radius and a may be [N] tiles so that the VJP
+# gives per-lane partials.
+# ---------------------------------------------------------------------------
+
+
+def _masked_step(radius, a, h0, h_min_frac, r_ref_scale, r_safe, y, active):
+    """One masked RK4 advance, op for op the march's (geodesic_march
+    _plain_step, csrc/kerr_ks_common.cuh rk4_delta). r₊ is recomputed from
+    (radius, a) here so that ∂/∂a flows through h; its sqrt and the
+    far-field speed are guarded by max(·, 1e-30), which leaves every real
+    lane's value unchanged and keeps the derivative finite. Ties of
+    maximum/minimum split the derivative half and half, as in JAX."""
+    dt = y.dtype
+    c = lambda v: torch.tensor(float(v), dtype=dt, device=y.device)
+    m = 0.5 * radius
+    r_plus = m + torch.sqrt(torch.maximum(m * m - a * a, c(1e-30)))
+    r_here = gm._ks_radius(a, y[1], y[2], y[3])
+    # Divisors are tensors, as in the march (see _plain_step).
+    h = h0 * torch.minimum(torch.maximum((r_here - r_plus) / c(r_ref_scale), c(h_min_frac)), c(1.0))
+    k1 = gm._rhs(radius, a, y)
+    if r_safe > 0.0:
+        rho = torch.sqrt(y[1] * y[1] + y[2] * y[2] + y[3] * y[3])
+        speed = torch.sqrt(torch.maximum(k1[1] ** 2 + k1[2] ** 2 + k1[3] ** 2, c(1e-30)))
+        outward = (y[1] * k1[1] + y[2] * k1[2] + y[3] * k1[3]) > 0.0
+        h_far = torch.minimum(0.5 * (rho - r_safe), 0.125 * rho) / torch.maximum(speed, c(1e-12))
+        h = torch.where(outward & (rho > r_safe), torch.maximum(h, h_far), h)
+    k2 = gm._rhs(radius, a, y + 0.5 * h * k1)
+    k3 = gm._rhs(radius, a, y + 0.5 * h * k2)
+    k4 = gm._rhs(radius, a, y + h * k3)
+    y_new = y + (h / c(6.0)) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    return torch.where(active[None], y_new, y)
+
+
+def _disc_payload(discs, ev_kind0, y, y_new):
+    """The slot-0 disc-crossing payload of the step y → y_new, as the march
+    stores it; multi-disc scenes select the disc bounds by the recorded
+    kind. The denominator guard is |dz| ≥ 1e-12 (the march guards exact
+    equality only): the VJP divides by dz², and a real crossing has |dz| at
+    the step scale."""
+    z_prev, z_new = y[3], y_new[3]
+    den_raw = z_prev - z_new
+    ok = torch.abs(den_raw) >= 1e-12
+    frac = torch.where(ok, z_prev, 0.0) / torch.where(ok, den_raw, 1.0)
+    px = y[1] + frac * (y_new[1] - y[1])
+    py = y[2] + frac * (y_new[2] - y[2])
+    rr = torch.sqrt(torch.maximum(px * px + py * py, px.new_tensor(1e-30)))
+    phi = torch.atan2(py, px)
+    inner = torch.zeros_like(px) + float(discs[0].inner)
+    outer = torch.zeros_like(px) + float(discs[0].outer)
+    for d in discs[1:]:
+        sel = ev_kind0 == d.kind
+        inner = torch.where(sel, float(d.inner), inner)
+        outer = torch.where(sel, float(d.outer), outer)
+    r_norm = (rr - inner) / (outer - inner)
+    u = 0.5 + 0.5 * r_norm * torch.cos(phi)
+    v = 0.5 + 0.5 * r_norm * torch.sin(phi)
+    return frac, px, py, u, v
+
+
+def _step_with_payload(discs, spheres, h0, h_min_frac, r_ref_scale, r_safe, ev_kind0, radius, a, y, active):
+    """y ↦ (y_new [8, N], payload [12, N]): [point3 | p_interp4 | uv2 | seg3]."""
+    if spheres:
+        raise NotImplementedError("the sphere payload of the reverse sweep is not yet ported")
+    y_new = _masked_step(radius, a, h0, h_min_frac, r_ref_scale, r_safe, y, active)
+    p_prev = gm._momentum_contra(radius, a, y)
+    p_new = gm._momentum_contra(radius, a, y_new)
+    seg = y_new[1:4] - y[1:4]
+    frac, px, py, u, v = _disc_payload(discs, ev_kind0, y, y_new)
+    p_interp = p_prev + frac[None] * (p_new - p_prev)
+    payload = torch.cat([px[None], py[None], torch.zeros_like(px)[None], p_interp, u[None], v[None], seg])
+    return y_new, payload
+
+
+def _trusted(*vals):
+    """Lanes whose every value (rows of [R, N] or [N] tensors) lies strictly
+    inside the trust region."""
+    ok = None
+    for v in vals:
+        t = torch.abs(v) < LAM_CAP
+        t = t.all(dim=0) if v.dim() == 2 else t
+        ok = t if ok is None else ok & t
+    return ok
+
+
+def ks_march_bwd_plain(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, radius, a, cfg):
+    """The reverse sweep in plain torch. ckpt [S, 8, N]; ct_y [N, 8]; ct_ev
+    [N, 12] (slot 0); steps, grad_ok, has_ev, ev_kind0 i32 [N]; radius and
+    a 0-d. Returns (d_y0 [N, 8], d_radius [N], d_a [N]) per lane.
+
+    Vectorized over lanes: each segment takes only the lanes with
+    seg·K < steps that need an adjoint (grad_ok), re-forwards them, and
+    each reverse step takes the VJP on the lanes active at that step."""
+    n = ct_y.shape[0]
+    dtype, device = ct_y.dtype, ct_y.device
+    sc = lambda v: torch.as_tensor(v, dtype=dtype, device=device).detach()
+    radius, a = sc(radius), sc(a)
+    step_kw = dict(h0=float(sc(cfg.h0)), h_min_frac=float(sc(cfg.h_min_frac)),
+                   r_ref_scale=float(sc(cfg.r_ref_scale)), r_safe=float(sc(cfg.r_safe)))
+    discs = tuple(gm.DiscSpec(float(sc(d.inner)), float(sc(d.outer)), int(d.kind)) for d in cfg.discs)
+    lam = ct_y.T.clone()  # [8, N]
+    # The trust test of a step whose lane is inactive, applied once.
+    lam = torch.where(_trusted(lam)[None], lam, 0.0)
+    d_r = torch.zeros(n, dtype=dtype, device=device)
+    d_a = torch.zeros(n, dtype=dtype, device=device)
+    steps = steps.long()
+    live = grad_ok != 0
+    k = int(cfg.k_ckpt)
+    for seg in reversed(range(ckpt.shape[0])):
+        start = seg * k
+        idx = torch.nonzero(live & (steps > start)).flatten()
+        if idx.numel() == 0:
+            continue
+        k_eff = torch.clamp(steps[idx] - start, max=k)
+        kind0 = ev_kind0[idx]
+        r_t, a_t = radius.expand(idx.numel()), a.expand(idx.numel())
+        # Re-forward, keeping the pre-step states.
+        y = ckpt[seg][:, idx]
+        states, acts = [], []
+        for j in range(int(k_eff.max())):
+            act = (j < k_eff) & torch.isfinite(y).all(dim=0)
+            states.append(y)
+            acts.append(act)
+            y = _masked_step(r_t, a_t, y=y, active=act, **step_kw)
+        # Reverse sweep.
+        for j in reversed(range(len(states))):
+            sub = torch.nonzero(acts[j]).flatten()
+            if sub.numel() == 0:
+                continue
+            lanes = idx[sub]
+            m = sub.numel()
+            stored = (has_ev[lanes] != 0) & (steps[lanes] - 1 == start + j)
+            ct_p = torch.where(stored[None], ct_ev[lanes].T, 0.0)
+            step = functools.partial(
+                _step_with_payload, discs, (), ev_kind0=kind0[sub],
+                active=torch.ones(m, dtype=torch.bool, device=device), **step_kw,
+            )
+            _, vjp = torch.func.vjp(
+                lambda r_, a_, y_: step(radius=r_, a=a_, y=y_), radius.expand(m), a.expand(m), states[j][:, sub]
+            )
+            d_r_l, d_a_l, lam_new = vjp((lam[:, lanes], ct_p))
+            trust = _trusted(lam_new, d_r_l, d_a_l)
+            lam[:, lanes] = torch.where(trust[None], lam_new, 0.0)
+            d_r[lanes] += torch.where(trust, d_r_l, 0.0)
+            d_a[lanes] += torch.where(trust, d_a_l, 0.0)
+    return lam.T.contiguous(), d_r, d_a
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel
+# ---------------------------------------------------------------------------
+
+_SOURCE = "kerr_ks_adjoint.cu"
+_bound: dict = {}
+
+
+def _entry(dtype):
+    """The kernel's C entry point for `dtype`, built on first use."""
+    fn = _bound.get(dtype)
+    if fn is None:
+        from gr_raytracer_tpu_torch.ops import cuda_build
+
+        lib = cuda_build.load(_SOURCE)
+        fn = lib.kerr_ks_adjoint_f32 if dtype == torch.float32 else lib.kerr_ks_adjoint_f64
+        p = ctypes.c_void_p
+        fn.argtypes = [
+            p, p, p, p, p, p, p, ctypes.c_int64, p, p, p, p,
+            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), p,
+        ]
+        fn.restype = ctypes.c_int
+        _bound[dtype] = fn
+    return fn
+
+
+def _bwd_cuda(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, radius, a, cfg):
+    global launches
+    n = ct_y.shape[0]
+    dev, dtype = ct_y.device, ct_y.dtype
+    ints32 = (steps, grad_ok, has_ev, ev_kind0)
+    if ckpt.dtype != dtype or ct_ev.dtype != dtype or any(t.dtype != torch.int32 for t in ints32):
+        raise TypeError("the reverse sweep takes float ckpt/cotangents of one dtype and i32 lane data")
+    if ckpt.dim() != 3 or ckpt.shape[1:] != (8, n) or ct_y.shape != (n, 8) or ct_ev.shape != (n, gm.EVENT_WIDTH):
+        raise ValueError("the reverse sweep takes ckpt [S, 8, N], ct_y [N, 8], ct_ev [N, 12]")
+    tensors = (ckpt, ct_y, ct_ev) + ints32
+    if any(t.device != dev or not t.is_contiguous() for t in tensors):
+        raise ValueError("the reverse sweep takes contiguous tensors on one device")
+    if len(cfg.discs) > gm.MAX_DISCS or not cfg.discs:
+        raise NotImplementedError(f"the reverse sweep takes 1 to {gm.MAX_DISCS} discs")
+    d_y0 = torch.empty_like(ct_y)
+    d_r = torch.empty(n, dtype=dtype, device=dev)
+    d_a = torch.empty(n, dtype=dtype, device=dev)
+    # Pre-step states of the segment being swept, [K, 8, N], lanes fastest.
+    scratch = torch.empty((cfg.k_ckpt, 8, n), dtype=dtype, device=dev)
+    params = (ctypes.c_double * 6)(
+        float(radius), float(a), float(cfg.h0), float(cfg.h_min_frac), float(cfg.r_ref_scale),
+        float(cfg.r_safe),
+    )
+    disc_rows = (ctypes.c_double * (3 * gm.MAX_DISCS))(
+        *[float(v) for d in cfg.discs for v in (d.inner, d.outer, d.kind)]
+    )
+    ints = (ctypes.c_int * 2)(int(ckpt.shape[0]), int(cfg.k_ckpt))
+    fn = _entry(dtype)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        timed = launch_timer is not None
+        if timed:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+        err = fn(
+            ckpt.data_ptr(), ct_y.data_ptr(), ct_ev.data_ptr(), steps.data_ptr(),
+            grad_ok.data_ptr(), has_ev.data_ptr(), ev_kind0.data_ptr(), n, d_y0.data_ptr(),
+            d_r.data_ptr(), d_a.data_ptr(), scratch.data_ptr(), params, disc_rows,
+            len(cfg.discs), ints, stream.cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"kerr_ks_adjoint kernel launch failed: CUDA error {err}")
+        launches += 1
+        if timed:
+            end.record(stream)
+            launch_timer.append((start, end))
+    return d_y0, d_r, d_a
+
+
+def ks_march_bwd(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, radius, a, cfg):
+    """The reverse sweep: the CUDA kernel for tensors on the card,
+    `ks_march_bwd_plain` for tensors on the CPU. Same arguments and per-lane
+    results as `ks_march_bwd_plain`."""
+    if ct_y.device.type == "cpu":
+        return ks_march_bwd_plain(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, radius, a, cfg)
+    if ct_y.device.type != "cuda":
+        raise ValueError(f"unsupported device {ct_y.device}")
+    return _bwd_cuda(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, radius, a, cfg)
+
+
+def sweep_lanes(stop, ev_kind, ev_count):
+    """(grad_ok, has_ev, ev_kind0), i32 [N]. The adjoint runs only where a
+    cotangent can be nonzero: escaped lanes (the sky shading reads y_f)
+    and event lanes (the disc shading reads the slot-0 payload). Captured,
+    NaN and budget lanes shade as constant black."""
+    grad_ok = ((stop == integ.CELESTIAL) | (ev_count > 0)).to(torch.int32)
+    has_ev = ((ev_count > 0) & (ev_kind[:, 0] >= 0)).to(torch.int32)
+    ev_kind0 = torch.clamp(ev_kind[:, 0], min=0).to(torch.int32).contiguous()
+    return grad_ok, has_ev, ev_kind0
+
+
+class _KSMarchDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, radius, a, horizon_eps, max_radius, y0, cfg):
+        host = lambda v: float(torch.as_tensor(v).detach())
+        out = gm.kerr_rk4_march(
+            host(radius), host(a), host(horizon_eps), y0.contiguous(), h0=cfg.h0,
+            max_steps=cfg.max_steps, max_radius=float(max_radius), discs=cfg.discs,
+            h_min_frac=cfg.h_min_frac, r_ref_scale=cfg.r_ref_scale, r_safe=cfg.r_safe,
+            opaque_stop=True, ckpt_every=cfg.k_ckpt,
+        )
+        y_f, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, ckpt = out
+        ctx.save_for_backward(radius, a, ckpt, stop, steps, ev_kind, ev_count)
+        ctx.cfg = cfg
+        ctx.mark_non_differentiable(stop, steps, ev_kind, ev_count, ev_ovf)
+        return y_f, ev_data, stop, steps, ev_kind, ev_count, ev_ovf
+
+    @staticmethod
+    def backward(ctx, ct_yf, ct_ev, *_):
+        # Cotangents of event slots ≥ 1 are structurally zero under the
+        # opaque stop (only slot 0 is shaded).
+        radius, a, ckpt, stop, steps, ev_kind, ev_count = ctx.saved_tensors
+        grad_ok, has_ev, ev_kind0 = sweep_lanes(stop, ev_kind, ev_count)
+        d_y0, d_r, d_a = ks_march_bwd(
+            ckpt, ct_yf.contiguous(), ct_ev[:, 0, :].contiguous(), steps, grad_ok, has_ev,
+            ev_kind0, radius, a, ctx.cfg,
+        )
+        d_radius = torch.sum(d_r).to(radius.dtype).reshape(radius.shape)
+        d_a_sum = torch.sum(d_a).to(a.dtype).reshape(a.shape)
+        return d_radius, d_a_sum, None, None, d_y0, None
+
+
+def make_ks_march_diff(
+    *, h0, max_steps, discs=(), spheres=(), r_safe, h_min_frac=0.01, r_ref_scale=10.0, k_ckpt=K_CKPT,
+):
+    """The differentiable Kerr-Schild march for a static configuration.
+
+    Returns fn(radius, a, horizon_eps, max_radius, y0) → (y_f [N, 8],
+    ev_data [N, K, 12], stop, steps, ev_kind, ev_count, ev_ovf), with
+    radius and a 0-d tensors. Gradients flow from y_f and ev_data[:, 0] to
+    radius, a and y0; horizon_eps and max_radius only move discrete stop
+    decisions and get none. The march runs with the opaque stop."""
+    if spheres:
+        raise NotImplementedError("the sphere payload of the reverse sweep is not yet ported")
+    if not discs:
+        raise ValueError("the differentiable march needs at least one disc")
+    cfg = SweepConfig(
+        float(h0), int(max_steps), tuple(discs), float(r_safe), float(h_min_frac),
+        float(r_ref_scale), int(k_ckpt),
+    )
+
+    def march(radius, a, horizon_eps, max_radius, y0):
+        return _KSMarchDiff.apply(radius, a, horizon_eps, max_radius, y0, cfg)
+
+    return march

@@ -289,8 +289,10 @@ def _plain_step(c, lanes, discs):
 def _check_args(y0, discs, spheres, vols, resume, ckpt_every):
     if spheres or vols:
         raise NotImplementedError("sphere and volume events are not yet ported")
-    if resume is not None or ckpt_every:
-        raise NotImplementedError("resume and checkpoints are not yet ported")
+    if resume is not None:
+        raise NotImplementedError("resume is not yet ported")
+    if int(ckpt_every) < 0:
+        raise ValueError(f"ckpt_every must be >= 0, got {ckpt_every}")
     if y0.dim() != 2 or y0.shape[1] != 8:
         raise ValueError(f"y0 must be [N, 8], got {tuple(y0.shape)}")
     if y0.dtype not in (torch.float32, torch.float64):
@@ -305,7 +307,8 @@ def march_plain(
     resume=None, finalize=True, ckpt_every=0, compensated=False,
 ):
     """The march in plain torch on y0's device; same arguments and results
-    as `kerr_rk4_march`."""
+    as `kerr_rk4_march`. Lanes are re-gathered every _COMPACT_EVERY
+    iterations; the checkpoint rows go by the global iteration count."""
     _check_args(y0, discs, spheres, vols, resume, ckpt_every)
     dtype, device = y0.dtype, y0.device
     n = y0.shape[0]
@@ -341,23 +344,31 @@ def march_plain(
         ev_ovf=torch.zeros(n, dtype=torch.bool, device=device),
         comp=torch.zeros_like(y),
     )
+    k_ckpt = int(ckpt_every)
+    if k_ckpt:
+        ckpt = torch.zeros((-(-attempts // k_ckpt), 8, n), dtype=dtype, device=device)
     it = 0
     while it < attempts:
         idx = torch.nonzero(lanes.stop == integ.RUNNING).flatten()
         if idx.numel() == 0:
             break
         sub = _take(lanes, idx)
-        for _ in range(min(_COMPACT_EVERY, attempts - it)):
+        for j in range(it, min(it + _COMPACT_EVERY, attempts)):
+            if k_ckpt and j % k_ckpt == 0:
+                # The pre-step state; a lane that stopped earlier in this
+                # sub-loop writes its frozen state into a row nothing reads.
+                ckpt[j // k_ckpt][:, idx] = sub.y
             sub = _plain_step(c, sub, discs)
         _put(lanes, idx, sub)
         it += _COMPACT_EVERY
     stop = lanes.stop
     if finalize:
         stop = torch.where(stop == integ.RUNNING, integ.BUDGET, stop)
-    return (
+    out = (
         lanes.y.T.contiguous(), stop, lanes.steps, lanes.ev_kind, lanes.ev_data,
         lanes.ev_count, lanes.ev_ovf,
     )
+    return out + (ckpt,) if k_ckpt else out
 
 
 # ---------------------------------------------------------------------------
@@ -378,7 +389,7 @@ def _entry(dtype):
         fn = lib.kerr_rk4_march_f32 if dtype == torch.float32 else lib.kerr_rk4_march_f64
         p = ctypes.c_void_p
         fn.argtypes = [
-            p, ctypes.c_int64, p, p, p, p, p, p, p,
+            p, ctypes.c_int64, p, p, p, p, p, p, p, p,
             ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double), ctypes.c_int,
             ctypes.POINTER(ctypes.c_int), p,
         ]
@@ -389,7 +400,7 @@ def _entry(dtype):
 
 def _march_cuda(
     radius, a, horizon_epsilon, y0, h0, max_steps, max_radius, discs, h_min_frac,
-    r_ref_scale, r_safe, opaque_stop, attempts, finalize, compensated,
+    r_ref_scale, r_safe, opaque_stop, attempts, finalize, compensated, ckpt_every,
 ):
     global launches
     if not y0.is_contiguous():
@@ -403,6 +414,8 @@ def _march_cuda(
     ev_data = torch.empty((n, MAX_EVENTS, EVENT_WIDTH), dtype=dtype, device=dev)
     ev_count = torch.empty(n, dtype=torch.int32, device=dev)
     ev_ovf = torch.empty(n, dtype=torch.bool, device=dev)
+    # Rows a lane never reaches stay unwritten (undefined), as on the TPU.
+    ckpt = torch.empty((-(-attempts // ckpt_every), 8, n), dtype=dtype, device=dev) if ckpt_every else None
     params = (ctypes.c_double * 8)(
         float(radius), float(a), float(horizon_epsilon), float(h0), float(max_radius),
         float(h_min_frac), float(r_ref_scale), float(r_safe),
@@ -410,9 +423,9 @@ def _march_cuda(
     disc_rows = (ctypes.c_double * (3 * MAX_DISCS))(
         *[float(v) for d in discs for v in (d.inner, d.outer, d.kind)]
     )
-    ints = (ctypes.c_int * 5)(
+    ints = (ctypes.c_int * 6)(
         int(attempts), int(max_steps), int(bool(opaque_stop)), int(bool(finalize)),
-        int(bool(compensated)),
+        int(bool(compensated)), int(ckpt_every),
     )
     fn = _entry(dtype)
     with torch.cuda.device(dev):
@@ -424,7 +437,8 @@ def _march_cuda(
         err = fn(
             y0.data_ptr(), n, y_out.data_ptr(), stop.data_ptr(), steps.data_ptr(),
             ev_kind.data_ptr(), ev_data.data_ptr(), ev_count.data_ptr(), ev_ovf.data_ptr(),
-            params, disc_rows, len(discs), ints, stream.cuda_stream,
+            None if ckpt is None else ckpt.data_ptr(), params, disc_rows, len(discs), ints,
+            stream.cuda_stream,
         )
         if err != 0:
             raise RuntimeError(f"kerr_rk4_march kernel launch failed: CUDA error {err}")
@@ -432,7 +446,8 @@ def _march_cuda(
         if timed:
             end.record(stream)
             launch_timer.append((start, end))
-    return y_out, stop, steps, ev_kind, ev_data, ev_count, ev_ovf
+    out = (y_out, stop, steps, ev_kind, ev_data, ev_count, ev_ovf)
+    return out + (ckpt,) if ckpt_every else out
 
 
 def kerr_rk4_march(
@@ -443,7 +458,11 @@ def kerr_rk4_march(
     """March N rays from y0 [N, 8] (position | covariant momentum).
 
     Returns (y [N, 8], stop [N] i32, steps [N] i32, ev_kind [N, K] i32,
-    ev_data [N, K, 12], ev_count [N] i32, ev_overflow [N] bool).
+    ev_data [N, K, 12], ev_count [N] i32, ev_overflow [N] bool), and with
+    ckpt_every = K > 0 an 8th result: the pre-step state every K
+    iterations, [S, 8, N] with S = ceil(attempts / K) (the reverse sweep's
+    checkpoints, ops/geodesic_adjoint.py; rows with seg·K ≥ steps[lane] are
+    undefined).
 
     r_safe > 0 enables the far-field lever; opaque_stop stops a lane at its
     first recorded event (exact when every texture is opaque); `attempts`
@@ -457,12 +476,12 @@ def kerr_rk4_march(
             radius, a, horizon_epsilon, y0, h0, max_steps, max_radius, discs=discs,
             h_min_frac=h_min_frac, r_ref_scale=r_ref_scale, r_safe=r_safe,
             opaque_stop=opaque_stop, attempts=attempts, finalize=finalize,
-            compensated=compensated,
+            ckpt_every=ckpt_every, compensated=compensated,
         )
     if y0.device.type != "cuda":
         raise ValueError(f"unsupported device {y0.device}")
     attempts = max_steps if attempts is None else int(attempts)
     return _march_cuda(
         radius, a, horizon_epsilon, y0, h0, max_steps, max_radius, tuple(discs), h_min_frac,
-        r_ref_scale, r_safe, opaque_stop, attempts, finalize, compensated,
+        r_ref_scale, r_safe, opaque_stop, attempts, finalize, compensated, int(ckpt_every),
     )

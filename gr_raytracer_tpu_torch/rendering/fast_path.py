@@ -62,18 +62,19 @@ def scene_kernel_spec(scene) -> KernelSpec:
         raise NotImplementedError(
             "the kernel path supports Kerr with thin discs only; other scenes are not yet ported"
         )
+    host = lambda v: float(torch.as_tensor(v).detach())  # frozen: no gradient
     discs = []
     extent = 0.0
     for idx, o in enumerate(scene.objects):
-        discs.append(gm.DiscSpec(float(o.inner_radius), float(o.outer_radius), idx))
-        extent = max(extent, float(o.outer_radius))
+        discs.append(gm.DiscSpec(host(o.inner_radius), host(o.outer_radius), idx))
+        extent = max(extent, host(o.outer_radius))
     geometry = scene.geometry
     # Far-field lever: 2× the outermost object extent, floored at 10×M so the
     # strong-field region keeps the h0 cadence.
-    r_safe = 2.0 * max(extent, 5.0 * float(geometry.radius))
+    r_safe = 2.0 * max(extent, 5.0 * host(geometry.radius))
     opaque = bool(scene.objects) and all(o.texture.is_opaque() for o in scene.objects)
     return KernelSpec(
-        float(geometry.radius), float(geometry.a), float(geometry.horizon_epsilon),
+        host(geometry.radius), host(geometry.a), host(geometry.horizon_epsilon),
         tuple(discs), r_safe, opaque,
     )
 
@@ -145,3 +146,40 @@ def trace_rays_fast(scene, positions, momenta, spec=None):
     solver, y0, freq, inverse = _prepare_march(scene, positions, momenta)
     res = integ.IntegrationResult(*_run_kernel(spec, scene.integration, y0))
     return _finish_samples(scene, res, freq, solver, inverse, first_event_only=spec.opaque)
+
+
+def supports_diff(scene) -> bool:
+    """Reverse mode through the march (ops/geodesic_adjoint.py) covers Kerr
+    with thin discs whose textures are all opaque: slot-0 shading is then
+    exact, and the adjoint takes one payload cotangent per lane at its last
+    step. Sphere scenes and Boyer-Lindquist / Schwarzschild scenes are not
+    yet ported."""
+    return bool(scene.objects) and supports_scene(scene) and scene_kernel_spec(scene).opaque
+
+
+def trace_rays_fast_diff(scene, positions, momenta, spec=None, k_ckpt=None):
+    """Differentiable `trace_rays_fast` on supports_diff scenes: gradients
+    flow through the final state (sky shading) and the slot-0 event payload
+    (disc shading), and through every step of the march to the metric
+    parameters radius and a. Discrete decisions (stop codes, the crossing
+    step, the cost sort) are locally constant. The disc bounds of the march
+    are host floats from `spec`, so UV cotangents see frozen bounds (the
+    blackbody texture ignores UV; the temperature reads the hit point,
+    which is fully differentiated)."""
+    from gr_raytracer_tpu_torch.ops import geodesic_adjoint as gadj
+
+    if spec is None:
+        if not supports_diff(scene):
+            raise ValueError("scene shape unsupported by the differentiable kernel path")
+        spec = scene_kernel_spec(scene)
+    solver, y0, freq, inverse = _prepare_march(scene, positions, momenta)
+    cfg = scene.integration
+    geometry = scene.geometry
+    march = gadj.make_ks_march_diff(
+        h0=1.0, max_steps=cfg.max_steps, discs=spec.discs, r_safe=spec.r_safe,
+        k_ckpt=k_ckpt or gadj.K_CKPT,
+    )
+    out = march(geometry.radius, geometry.a, geometry.horizon_epsilon, cfg.max_radius, y0)
+    y_f, ev_data, stop, steps, ev_kind, ev_count, ev_ovf = out
+    res = integ.IntegrationResult(y_f, stop, steps, ev_kind, ev_data, ev_count, ev_ovf)
+    return _finish_samples(scene, res, freq, solver, inverse, first_event_only=True)

@@ -95,7 +95,9 @@ def test_wrapper_rejects_unported_options():
     with pytest.raises(NotImplementedError):
         gm.kerr_rk4_march(*args, spheres=(object(),))
     with pytest.raises(NotImplementedError):
-        gm.kerr_rk4_march(*args, ckpt_every=4)
+        gm.kerr_rk4_march(*args, resume=gm.kerr_rk4_march(*args))
+    with pytest.raises(ValueError):
+        gm.kerr_rk4_march(*args, ckpt_every=-1)
     with pytest.raises(ValueError):
         gm.kerr_rk4_march(1.0, 0.45, 1e-3, torch.zeros((4, 7), dtype=torch.float64), 1.0, 10, 40.0)
 
