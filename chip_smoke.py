@@ -27,9 +27,29 @@ non-zero on failure:
      float32, pyramid loss (4, 16), clip 1.0 ahead of Adam with the cosine
      schedule (1e-2, 400, 0.01)) from its start1; K1 and K2 must launch
      and every gradient must be finite;
-  8. one JSON line {"kernels": [...]} with each kernel's launches, error
+  8. the Mino-time march K3 against its plain version on the card, on the
+     middle 65,536-ray chunk of the 1000² kerr-bl.toml frame at the CLI's
+     Mino budget of 40,000 (nominal 20,000): float32 without Kahan (the
+     main path's configuration) over the whole budget, float32 with Kahan
+     and float64 with and without over their first 4,000 steps (the plain
+     march costs ~4.5 ms an iteration whatever the lane count); then K3
+     with checkpoints (every 128 steps) on the 16,384 rays of the BL fit
+     frame, float32 (whole budget) and float64 (first 4,000 steps);
+  9. the BL main path: the CLI `render` of kerr-bl.toml at 1000×1000
+     (docs/examples.md), float32, 4×4 AA; K3 must launch and the frame must
+     show horizon, sky and disc;
+ 10. Schwarzschild through K3 at a = 0: the CLI `render` of the disc-only
+     Schwarzschild scene of tests/test_golden_frames.py at 512×512;
+ 11. the BL reverse sweep K4 against its plain version on the BL fit
+     frame's checkpoints, with seeded cotangents, float64 and float32;
+ 12. the BL gradient path: the 12-step spin fit of
+     scripts/grad_scale_probe.py --bl (kerr-bl.toml 128², nominal budget
+     10,000, float32, target a = 0.45, start 0.30, Adam 3e-2); K3 and K4
+     must launch, every gradient must be finite, the loss must fall and a
+     must move toward 0.45;
+ 13. one JSON line {"kernels": [...]} with each kernel's launches, error
      against its plain version, times and bound;
-  9. the last line: {"ok": true, "device": {...}}.
+ 14. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -63,6 +83,42 @@ FIT_START1 = (0.30, -0.2231435513142097, 1.42)  # v = log(0.8)
 # Bars for K2 against its plain version: per-lane relative error of d_y0 on
 # grad_ok lanes, and relative error of the summed parameter partials.
 K2_BARS = {"float64": (1e-9, 0.999, 1e-9), "float32": (1e-3, 0.99, 1e-3)}
+# The Boyer-Lindquist paths: docs/examples.md's KerrBL and Schwarzschild
+# commands (the tetrad's z is radial, so the camera turns by π).
+KERR_BL_TOML = os.path.join(HERE, "scene-definitions", "kerr-bl.toml")
+BL_CAMERA = ["--camera-position=-10,0,-0.5", "--theta=-3.14159"]
+BL_CAMERA_KW = dict(camera_position=(-10.0, 0.0, -0.5), theta=-3.14159)
+SCHWARZSCHILD_SIZE = 512
+# The disc-only Schwarzschild scene of tests/test_golden_frames.py.
+SCHWARZSCHILD_DISC_TOML = """
+celestial_temperature = 0.0
+[celestial_texture.Checker]
+beaming_exponent = 0.0
+width = 18.0
+height = 9.0
+color1 = [30, 30, 90]
+color2 = [4, 4, 12]
+[geometry_type.Schwarzschild]
+radius = 1.0
+horizon_epsilon = 1e-4
+[[objects]]
+[objects.Disc]
+inner_radius = 3.0
+outer_radius = 6.0
+temperature = 4000.0
+[objects.Disc.texture.BlackBody]
+beaming_exponent = 3.0
+"""
+# The BL gradient path: the spin fit of grad_scale_probe.py --bl.
+BL_FIT_SIZE = 128
+BL_FIT_BUDGET = 10_000  # nominal; the Mino march takes twice as many
+BL_FIT_RADIUS = 1000.0
+BL_FIT_STEPS = 12
+BL_FIT_TRUE, BL_FIT_START = 0.45, 0.30
+BL_FIT_CAMERA = dict(camera_position=(-10.0, 0.0, -0.5), theta=1.52, psi=-1.57)
+# Iterations of the K3-against-plain comparisons that do not run the whole
+# budget (see phase 8).
+BL_COMPARE_ATTEMPTS = 4000
 FP32_LANES_PER_SM = 128  # Hopper: FP32 units per SM
 FP64_LANES_PER_SM = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -87,15 +143,16 @@ def nvidia_smi(query):
 
 def count_flops(fn):
     """Arithmetic operations that `fn` runs on one lane: every elementwise
-    arithmetic op (add, sub, mul, div, neg, sqrt, rsqrt, pow, min/max,
-    clamp, abs) that torch executes, counted by a dispatch mode. Compares,
-    selects and copies are not counted."""
+    arithmetic op (add, sub, mul, div, reciprocal, neg, sqrt, rsqrt, pow,
+    min/max, clamp, abs, and sin, cos, atan2 as one operation each) that
+    torch executes, counted by a dispatch mode. Compares, selects and copies
+    are not counted."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
     arith = {
-        "add", "sub", "mul", "div", "neg", "sqrt", "rsqrt", "pow", "minimum", "maximum",
-        "clamp", "clamp_min", "abs", "rsub",
+        "add", "sub", "mul", "div", "reciprocal", "neg", "sqrt", "rsqrt", "pow", "minimum",
+        "maximum", "clamp", "clamp_min", "abs", "rsub", "sin", "cos", "atan2",
     }
 
     class Counter(TorchDispatchMode):
@@ -227,24 +284,61 @@ def lane_relative_error(ref, got):
     return float(err.max()) if err.numel() else 0.0
 
 
-def compare_march(dtype, compensated, flops_per_step):
-    """K1 against march_plain on the same inputs; returns a result dict."""
+def bl_march_inputs(dtype, device="cuda"):
+    """(scene, spec, y0, freq, solver, inverse) for the middle CLI chunk of
+    the 1000×1000 kerr-bl.toml frame, cost-sorted as the main path sorts it."""
+    import numpy as np
+    import torch
+
+    from gr_raytracer_tpu_torch import config
+    from gr_raytracer_tpu_torch.rendering import camera as cam
+    from gr_raytracer_tpu_torch.rendering import fast_path
+
+    opts = config.RenderOptions(width=FRAME, height=FRAME, max_steps=MAX_STEPS, **BL_CAMERA_KW)
+    scene = config.create_scene(config.load_config(KERR_BL_TOML), opts, dtype, torch.device(device))
+    first = FRAME * FRAME // 2 - N_RAYS // 2
+    flat = np.arange(first, first + N_RAYS)
+    rows = torch.as_tensor(flat // FRAME, dtype=dtype, device=device)
+    cols = torch.as_tensor(flat % FRAME, dtype=dtype, device=device)
+    x, p = cam.pixel_rays(scene.camera, rows, cols)
+    spec = fast_path.scene_kernel_spec(scene)
+    solver, y0, freq, inverse = fast_path._prepare_march(scene, x, p)
+    return scene, spec, y0.contiguous(), freq, solver, inverse
+
+
+def compare_march(dtype, compensated, flops_per_step, bl=False, attempts=None):
+    """K1 (K3 with `bl`) against its plain version on the same inputs, the
+    main path's middle chunk at its budget; `attempts` bounds the
+    iterations of both (unfinished lanes stay RUNNING). Returns a result
+    dict."""
     import torch
 
     from gr_raytracer_tpu_torch.ops import geodesic_march as gm
     from gr_raytracer_tpu_torch.rendering import fast_path
     from gr_raytracer_tpu_torch.rendering.integrator import IntegrationResult
 
-    scene, spec, y0, freq, solver, inverse = march_inputs(dtype)
-    args = (spec.radius, spec.a, spec.horizon_epsilon, y0)
-    kw = dict(h0=1.0, max_steps=MAX_STEPS, max_radius=scene.integration.max_radius,
-              discs=spec.discs, r_safe=spec.r_safe, opaque_stop=spec.opaque,
-              compensated=compensated)
-    got = gm.kerr_rk4_march(*args, **kw)  # first launch: checks the kernel runs
+    if bl:
+        scene, spec, y0, freq, solver, inverse = bl_march_inputs(dtype)
+        consts = (solver.e.contiguous(), solver.l_z.contiguous(), solver.q.contiguous())
+        args = (spec.radius, spec.a, spec.horizon_epsilon, y0, *consts)
+        kw = dict(h0=0.01, max_steps=2 * MAX_STEPS, max_radius=scene.integration.max_radius,
+                  discs=spec.discs, opaque_stop=spec.opaque, compensated=compensated)
+        if attempts is not None:
+            kw.update(attempts=attempts, finalize=False)
+        kernel, plain = gm.kerr_bl_rk4_march, gm.march_bl_plain
+    else:
+        scene, spec, y0, freq, solver, inverse = march_inputs(dtype)
+        consts = ()
+        args = (spec.radius, spec.a, spec.horizon_epsilon, y0)
+        kw = dict(h0=1.0, max_steps=MAX_STEPS, max_radius=scene.integration.max_radius,
+                  discs=spec.discs, r_safe=spec.r_safe, opaque_stop=spec.opaque,
+                  compensated=compensated)
+        kernel, plain = gm.kerr_rk4_march, gm.march_plain
+    got = kernel(*args, **kw)  # first launch: checks the kernel runs
     torch.cuda.synchronize()
-    kernel_ms, got = time_cuda(lambda: gm.kerr_rk4_march(*args, **kw), reps=3)
+    kernel_ms, got = time_cuda(lambda: kernel(*args, **kw), reps=3)
     t0 = time.perf_counter()
-    ref = gm.march_plain(*args, **kw)
+    ref = plain(*args, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
 
@@ -252,16 +346,20 @@ def compare_march(dtype, compensated, flops_per_step):
     y_r, stop_r, steps_r, kind_r, data_r, count_r, ovf_r = ref
     same = (stop_g == stop_r) & (count_g == count_r)
     agree = float(same.double().mean())
+    eq = lambda g, r: bool(((g == r) | (g.isnan() & r.isnan()) if g.is_floating_point() else (g == r)).all())
     res = {
+        "kernel": "K3" if bl else "K1",
         "dtype": str(dtype).replace("torch.", ""), "compensated": compensated,
+        "budget": kw["max_steps"], "attempts": kw.get("attempts", kw["max_steps"]),
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "stop_agreement": agree,
+        "bit_identical": all(eq(g, r) for g, r in zip(got, ref)),
         "stops": torch.bincount(stop_g, minlength=8).tolist(),
         "max_steps_taken": int(steps_g.max()), "sum_steps": int(steps_g.long().sum()),
         "steps_equal_on_agreeing": float((steps_g == steps_r)[same].double().mean()),
     }
     n = y0.shape[0]
     elem = y0.element_size()
-    bytes_moved = n * (8 * elem + 8 * elem + 3 * 4 + 8 * 4 + 8 * 12 * elem + 1)
+    bytes_moved = n * ((8 + len(consts)) * elem + 8 * elem + 3 * 4 + 8 * 4 + 8 * 12 * elem + 1)
     peak = card_peak_flops(dtype)
     ops_ms = res["sum_steps"] * flops_per_step / peak * 1e3
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -296,7 +394,6 @@ def compare_march(dtype, compensated, flops_per_step):
     return res
 
 
-
 def fit_frame_inputs(dtype):
     """(spec, y0) of the 65,536 rays of the 256² flagship fit frame at its
     true parameters, cost-sorted as the differentiable path sorts them."""
@@ -319,39 +416,63 @@ def fit_frame_inputs(dtype):
     return fast_path.scene_kernel_spec(scene), y0.contiguous()
 
 
-def compare_march_ckpt(dtype):
-    """K1 with checkpoints against march_plain on the fit frame; returns
-    (result dict, the plain march's outputs, spec)."""
+def compare_march_ckpt(dtype, bl=False, attempts=None):
+    """K1 (K3 with `bl`) with checkpoints against its plain version on the
+    256² flagship fit frame (the BL fit frame) at its true parameters, both
+    bounded by `attempts` if given. Outputs and the checkpoint rows a lane
+    reaches must be equal. Returns (result dict, the whole march's outputs
+    with checkpoints (the kernel's when `attempts` bounds the comparison),
+    spec, the lanes' (E, L_z, Q) or ())."""
     import torch
 
     from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+    from gr_raytracer_tpu_torch.rendering import fast_path
 
-    spec, y0 = fit_frame_inputs(dtype)
-    args = (spec.radius, spec.a, spec.horizon_epsilon, y0)
-    kw = dict(h0=1.0, max_steps=FIT_BUDGET, max_radius=40.0, discs=spec.discs, r_safe=spec.r_safe,
-              opaque_stop=True, ckpt_every=K_CKPT)
-    got = gm.kerr_rk4_march(*args, **kw)
+    if bl:
+        scene, spec, x, p = bl_fit_scene(dtype)
+        solver, y0, _, _ = fast_path._prepare_march(scene, x, p)
+        consts = (solver.e.contiguous(), solver.l_z.contiguous(), solver.q.contiguous())
+        kw = dict(h0=0.01, max_steps=2 * BL_FIT_BUDGET, max_radius=BL_FIT_RADIUS)
+        kernel, plain = gm.kerr_bl_rk4_march, gm.march_bl_plain
+    else:
+        spec, y0 = fit_frame_inputs(dtype)
+        consts = ()
+        kw = dict(h0=1.0, max_steps=FIT_BUDGET, max_radius=40.0, r_safe=spec.r_safe)
+        kernel, plain = gm.kerr_rk4_march, gm.march_plain
+    args = (spec.radius, spec.a, spec.horizon_epsilon, y0.contiguous(), *consts)
+    kw.update(discs=spec.discs, opaque_stop=True, ckpt_every=K_CKPT)
+    full = kernel(*args, **kw)
     torch.cuda.synchronize()
-    kernel_ms, got = time_cuda(lambda: gm.kerr_rk4_march(*args, **kw), reps=3)
-    ref = gm.march_plain(*args, **kw)
+    kernel_ms, full = time_cuda(lambda: kernel(*args, **kw), reps=3)
+    if attempts is not None:
+        kw.update(attempts=attempts, finalize=False)
+    got = full if attempts is None else kernel(*args, **kw)
+    t0 = time.perf_counter()
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     steps = ref[2].long()
     reached = torch.arange(ref[7].shape[0], device="cuda")[:, None] * K_CKPT < steps[None]
     same = lambda g, r: (g == r) | (g.isnan() & r.isnan()) if g.is_floating_point() else g == r
     rows_equal = bool(torch.where(reached[:, None, :], same(got[7], ref[7]), True).all())
     outputs_equal = all(bool(same(g, r).all()) for g, r in zip(got[:7], ref[:7]))
     res = {
-        "dtype": str(dtype).replace("torch.", ""), "kernel_ms": kernel_ms,
+        "kernel": "K3" if bl else "K1", "dtype": str(dtype).replace("torch.", ""),
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "budget": kw["max_steps"],
+        "attempts": kw.get("attempts", kw["max_steps"]),
         "outputs_equal": outputs_equal, "ckpt_rows_equal": rows_equal,
         "ckpt_rows_reached": int(reached.sum()), "max_steps_taken": int(steps.max()),
         "sum_steps": int(steps.sum()), "stops": torch.bincount(ref[1], minlength=8).tolist(),
     }
     res["ok"] = outputs_equal and rows_equal
-    return res, ref, spec
+    return res, (ref if attempts is None else full), spec, consts
 
 
-def compare_adjoint(dtype, march, spec, flops_step, flops_vjp):
-    """K2 against ks_march_bwd_plain on the checkpoints of `march` (the
-    plain K1 outputs of the fit frame), with seeded cotangents."""
+def compare_adjoint(dtype, march, spec, flops_step, flops_vjp, consts=()):
+    """K2 (K4 when `consts` holds the lanes' (E, L_z, Q)) against its plain
+    version on the checkpoints of `march` (the fit frame's), with seeded
+    cotangents on the final state of escaped lanes and on event slot 0 of
+    hit lanes; every grad_ok lane is held."""
     import torch
 
     from gr_raytracer_tpu_torch.ops import geodesic_adjoint as gadj
@@ -363,34 +484,46 @@ def compare_adjoint(dtype, march, spec, flops_step, flops_vjp):
     n = y_f.shape[0]
     ct_y = torch.randn((n, 8), generator=gen, dtype=dtype, device="cuda") * (stop == 2)[:, None]
     ct_ev = torch.randn((n, 12), generator=gen, dtype=dtype, device="cuda") * (has_ev != 0)[:, None]
-    cfg = gadj.SweepConfig(1.0, FIT_BUDGET, spec.discs, spec.r_safe, 0.01, 10.0, K_CKPT)
+    if consts:
+        cfg = gadj.SweepConfig(0.01, 2 * BL_FIT_BUDGET, spec.discs, 0.0, 0.02, 10.0, K_CKPT)
+        sweep, plain = gadj.bl_march_bwd, gadj.bl_march_bwd_plain
+    else:
+        cfg = gadj.SweepConfig(1.0, FIT_BUDGET, spec.discs, spec.r_safe, 0.01, 10.0, K_CKPT)
+        sweep, plain = gadj.ks_march_bwd, gadj.ks_march_bwd_plain
     args = (ckpt, ct_y.contiguous(), ct_ev.contiguous(), steps, grad_ok, has_ev, kind0,
-            spec.radius, spec.a, cfg)
-    got = gadj.ks_march_bwd(*args)  # first launch: checks the kernel runs
+            spec.radius, spec.a, *consts, cfg)
+    got = sweep(*args)  # first launch: checks the kernel runs
     torch.cuda.synchronize()
-    kernel_ms, got = time_cuda(lambda: gadj.ks_march_bwd(*args), reps=3)
+    kernel_ms, got = time_cuda(lambda: sweep(*args), reps=3)
     t0 = time.perf_counter()
-    ref = gadj.ks_march_bwd_plain(*args)
+    ref = plain(*args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
 
+    # Per grad_ok lane: the error of d_y0 over its largest entry and, on
+    # the BL sweep, that of (dE, dL_z, dQ) over theirs.
     ok_lanes = grad_ok != 0
-    d_g, d_r = got[0][ok_lanes], ref[0][ok_lanes]
-    scale = d_r.abs().amax(dim=1).clamp(min=1e-300)
-    lane_err = (d_g - d_r).abs().amax(dim=1) / scale
+
+    def lane_err(g, r):
+        g, r = g[ok_lanes], r[ok_lanes]
+        return (g - r).abs().amax(dim=1) / r.abs().amax(dim=1).clamp(min=1e-300)
+
+    lane = lane_err(got[0], ref[0])
+    if consts:
+        lane = torch.maximum(lane, lane_err(torch.stack(got[1:4], 1), torch.stack(ref[1:4], 1)))
     rel = lambda g, r: abs(float(g.double().sum()) - float(r.double().sum())) / max(abs(float(r.double().sum())), 1e-300)
     name = str(dtype).replace("torch.", "")
     lane_tol, share, sum_tol = K2_BARS[name]
     res = {
-        "dtype": name, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "grad_ok_lanes": int(ok_lanes.sum()),
-        "lanes_within_tol": float((lane_err <= lane_tol).double().mean()),
-        "lane_rel_err_max": float(lane_err.max()),
-        "lane_rel_err_q999": float(torch.quantile(lane_err.double(), 0.999)),
-        "max_abs_err": float((d_g - d_r).abs().max()),
-        "d_radius": [float(got[1].double().sum()), float(ref[1].double().sum())],
-        "d_a": [float(got[2].double().sum()), float(ref[2].double().sum())],
-        "d_radius_rel_err": rel(got[1], ref[1]), "d_a_rel_err": rel(got[2], ref[2]),
+        "kernel": "K4" if consts else "K2", "dtype": name, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "grad_ok_lanes": int(ok_lanes.sum()), "max_steps_grad_ok": int(steps[ok_lanes].max()),
+        "lanes_within_tol": float((lane <= lane_tol).double().mean()),
+        "lane_rel_err_max": float(lane.max()),
+        "lane_rel_err_q999": float(torch.quantile(lane.double(), 0.999)),
+        "max_abs_err": max(float((g - r)[ok_lanes].abs().max()) for g, r in zip(got[:-2], ref[:-2])),
+        "d_radius": [float(got[-2].double().sum()), float(ref[-2].double().sum())],
+        "d_a": [float(got[-1].double().sum()), float(ref[-1].double().sum())],
+        "d_radius_rel_err": rel(got[-2], ref[-2]), "d_a_rel_err": rel(got[-1], ref[-1]),
     }
     # Bound: per grad_ok lane, `steps` re-forward steps and `steps` reverse
     # steps of work; bytes are the checkpoint reads, the scratch traffic
@@ -400,7 +533,8 @@ def compare_adjoint(dtype, march, spec, flops_step, flops_vjp):
     s_ok = steps.long()[ok_lanes]
     ops = float(s_ok.sum()) * (flops_step + flops_vjp)
     ckpt_rows = float(((s_ok + K_CKPT - 1) // K_CKPT).sum())
-    bytes_moved = (ckpt_rows * 8 + 2.0 * 8 * float(s_ok.sum())) * elem + n * ((8 + 12 + 8 + 2) * elem + 16)
+    bytes_moved = ((ckpt_rows * 8 + 2.0 * 8 * float(s_ok.sum())) * elem
+                   + n * ((8 + 12 + 8 + 2 + 2 * len(consts)) * elem + 16))
     ops_ms = ops / card_peak_flops(dtype) * 1e3
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     res["bound_ms"] = max(ops_ms, bytes_ms)
@@ -410,16 +544,13 @@ def compare_adjoint(dtype, march, spec, flops_step, flops_vjp):
     return res
 
 
-def fit_step_breakdown(render, target, params):
+def fit_step_breakdown(render, loss_fn, target, params):
     """Where one fit step's time goes: host clock around each part, each
     ended by a synchronize; then the device's busy share of one more step,
     from a torch.profiler trace (the sum of device time over the step's
     wall time; None when the trace shows no device time)."""
     import torch
 
-    from gr_raytracer_tpu_torch import inverse
-
-    loss_fn = inverse.pyramid_image_loss(FIT_SIZE, FIT_SIZE, (4, 16))
     leaves = [v.requires_grad_(True) for v in params.values()]
     marks = [("start", time.perf_counter())]
 
@@ -518,7 +649,9 @@ def fit_phase():
     )
     k1_launches, k2_launches = gm.launches, gadj.launches
     gm.launch_timer = gadj.launch_timer = None
-    split, busy = fit_step_breakdown(render, target, as_params(*FIT_START1))
+    split, busy = fit_step_breakdown(
+        render, inverse.pyramid_image_loss(FIT_SIZE, FIT_SIZE, (4, 16)), target, as_params(*FIT_START1)
+    )
     mean = lambda key: sum(r[key] for r in rows) / len(rows)
     summary = {
         "frame": f"{FIT_SIZE}x{FIT_SIZE}", "max_steps": FIT_BUDGET, "steps": FIT_STEPS,
@@ -539,6 +672,247 @@ def fit_phase():
         fail(f"the fit launched K1 {k1_launches} and K2 {k2_launches} times")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         fail(f"the fit's loss did not fall: {losses}")
+    return summary
+
+
+def _bl_one_lane():
+    import torch
+
+    return torch.tensor([[0.0, 8.0, 1.4, 0.5, -30.0, 0.9, 0.0, 0.0]], dtype=torch.float64).T
+
+
+def count_bl_step_flops():
+    """Arithmetic operations of one Mino-time RK4 step of the BL march, per
+    ray, counted on the plain step (count_flops); event stores are rare and
+    not counted."""
+    import math
+
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+
+    f64 = torch.float64
+    c = gm._march_constants(1.0, 0.499, 1e-4, 0.01, 100, 1000.0, 0.02, 10.0, True, False, f64, "cpu")
+    c["half_pi"] = torch.tensor(math.pi / 2, dtype=f64)
+    y = _bl_one_lane()
+    one = lambda v: torch.tensor([v], dtype=f64)
+    lanes = gm._BLLanes(
+        y, torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
+        *gm._event_buffers(1, f64, "cpu"), torch.zeros_like(y), one(1.0), one(2.0), one(5.0), one(1.0),
+    )
+    return count_flops(lambda: gm._bl_plain_step(c, lanes, ()))
+
+
+def count_bl_vjp_flops():
+    """Arithmetic operations of one reverse step of the BL sweep, per ray:
+    the plain step map with its slot-0 payload (_bl_step_with_payload) and
+    its VJP by torch.autograd, on one lane."""
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import geodesic_adjoint as gadj
+    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+
+    f64 = torch.float64
+    leaves = [torch.tensor([v], dtype=f64, requires_grad=True) for v in (1.0, 0.45, 1.0, 2.0, 5.0)]
+    y = _bl_one_lane().requires_grad_(True)
+    disc = (gm.DiscSpec(1.0, 15.0, 0),)
+
+    def vjp():
+        y_new, payload = gadj._bl_step_with_payload(
+            disc, 0.01, 0.02, 10.0, torch.zeros(1, dtype=torch.int32), *leaves, y,
+            torch.ones(1, dtype=torch.bool),
+        )
+        torch.autograd.grad((y_new, payload), (*leaves, y), (torch.ones_like(y_new), torch.ones_like(payload)))
+
+    return count_flops(vjp)
+
+
+def bl_fit_scene(dtype):
+    """(scene, spec, x, p): kerr-bl.toml at the BL fit's size, budget and
+    camera (grad_scale_probe.py --bl), and its camera rays."""
+    import torch
+
+    from gr_raytracer_tpu_torch import config
+    from gr_raytracer_tpu_torch.rendering import camera as cam
+    from gr_raytracer_tpu_torch.rendering import fast_path
+
+    opts = config.RenderOptions(width=BL_FIT_SIZE, height=BL_FIT_SIZE, max_steps=BL_FIT_BUDGET,
+                                max_radius=BL_FIT_RADIUS, **BL_FIT_CAMERA)
+    scene = config.create_scene(config.load_config(KERR_BL_TOML), opts, dtype, torch.device("cuda"))
+    rr, cc = torch.meshgrid(
+        torch.arange(BL_FIT_SIZE, dtype=dtype, device="cuda"),
+        torch.arange(BL_FIT_SIZE, dtype=dtype, device="cuda"), indexing="ij",
+    )
+    x, p = cam.pixel_rays(scene.camera, rr.ravel(), cc.ravel())
+    return scene, fast_path.scene_kernel_spec(scene), x, p
+
+
+def cli_render(toml, size, camera, png, timer_module, timer_name):
+    """One CLI `render` (float32, the TOML's AA) into `png`; returns
+    (RenderOutput, seconds, launches of the kernel whose counter is
+    `timer_module.<timer_name>`, its ms from the launch timer)."""
+    import torch
+
+    from gr_raytracer_tpu_torch import cli
+
+    timer = timer_name.replace("launches", "launch_timer")
+    setattr(timer_module, timer_name, 0)
+    setattr(timer_module, timer, [])
+    argv = ["--width", str(size), "--height", str(size), *camera, "--max-steps", str(MAX_STEPS),
+            "-c", toml, "render", "--filename", png]
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = getattr(timer_module, timer_name)
+    ms = sum(s.elapsed_time(e) for s, e in getattr(timer_module, timer))
+    setattr(timer_module, timer, None)
+    return out, total_s, launches, ms
+
+
+def check_frame(out, png, size, codes, what):
+    """The frame's checks: supersampled pixels, the stop codes `codes` in
+    pass 1, finite colors, a non-trivial PNG; returns its summary."""
+    import numpy as np
+
+    from gr_raytracer_tpu_torch.utils.png import png_decode
+
+    with open(png, "rb") as f:
+        img = png_decode(f.read())
+    pass1, aa = out.stats["pass1"], out.stats.get("aa")
+    if aa is None or not out.supersample_mask.any():
+        fail(f"{what}: no pixel was supersampled")
+    stops = pass1.stop_counts
+    names = {1: "HORIZON", 2: "CELESTIAL", 7: "SATURATED"}
+    for code in codes:
+        if stops[code] == 0:
+            fail(f"{what}: no {names[code]} ray in the frame: {stops.tolist()}")
+    if img.shape != (size, size, 4) or img[..., :3].std() < 5.0:
+        fail(f"{what}: the PNG looks trivial: shape {img.shape}, std {img[..., :3].std():.2f}")
+    if not (out.color.shape == (size, size, 4) and bool(np.isfinite(out.color).all())):
+        fail(f"{what}: the frame has non-finite values or a wrong shape")
+    return {
+        "frame": f"{size}x{size}", "pass1_s": pass1.seconds, "pass1_rays": pass1.rays,
+        "pass1_ray_steps": pass1.ray_steps, "aa_s": aa.seconds, "aa_rays": aa.rays,
+        "aa_ray_steps": aa.ray_steps,
+        "rays_per_s": (pass1.rays + aa.rays) / (pass1.seconds + aa.seconds),
+        "ray_steps_per_s": (pass1.ray_steps + aa.ray_steps) / (pass1.seconds + aa.seconds),
+        "supersampled_pixels": int(out.supersample_mask.sum()),
+        "stop_counts_pass1": stops.tolist(),
+        "hit_pixels": int((out.ray_class == 2).sum()),
+    }
+
+
+def nan_lanes_report(limit=20):
+    """Every pass-1 ray of the 1000² kerr.toml frame that stops NAN: its
+    pixel, initial state (exact float32 values) and stop step. Marched
+    chunk by chunk as the render does, outside the main path's count."""
+    import numpy as np
+    import torch
+
+    from gr_raytracer_tpu_torch import config
+    from gr_raytracer_tpu_torch.rendering import camera as cam
+    from gr_raytracer_tpu_torch.rendering import fast_path
+    from gr_raytracer_tpu_torch.rendering import integrator as integ
+
+    dt = torch.float32
+    opts = config.RenderOptions(width=FRAME, height=FRAME, max_steps=MAX_STEPS,
+                                camera_position=(-10.0, 0.0, -0.5), theta=1.52, psi=-1.57)
+    scene = config.create_scene(config.load_config(KERR_TOML), opts, dt, torch.device("cuda"))
+    spec = fast_path.scene_kernel_spec(scene)
+    lanes = []
+    for start in range(0, FRAME * FRAME, N_RAYS):
+        flat = np.arange(start, min(start + N_RAYS, FRAME * FRAME))
+        rows = torch.as_tensor(flat // FRAME, dtype=dt, device="cuda")
+        cols = torch.as_tensor(flat % FRAME, dtype=dt, device="cuda")
+        x, p = cam.pixel_rays(scene.camera, rows, cols)
+        solver, y0, _, inverse = fast_path._prepare_march(scene, x, p)
+        res = fast_path._run_kernel(spec, scene.integration, solver, y0.contiguous())
+        stop, steps = res[1][inverse], res[2][inverse]
+        for i in torch.nonzero(stop == integ.NAN).flatten().tolist():
+            lanes.append({
+                "pixel": [int(flat[i] // FRAME), int(flat[i] % FRAME)],
+                "y0": [float(v) for v in y0[inverse][i].double().tolist()],
+                "stop_step": int(steps[i]),
+                "y_final": [float(v) for v in res[0][inverse][i].double().tolist()],
+            })
+    return {"nan_lanes": len(lanes), "lanes": lanes[:limit]}
+
+
+def bl_fit_phase():
+    """The 12-step spin fit of grad_scale_probe.py --bl through inverse.fit
+    on the card; returns its summary."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from gr_raytracer_tpu_torch import inverse
+    from gr_raytracer_tpu_torch.geometry.kerr_bl import KerrBL
+    from gr_raytracer_tpu_torch.ops import geodesic_adjoint as gadj
+    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+    from gr_raytracer_tpu_torch.rendering import fast_path
+
+    dt = torch.float32
+    scene, spec, x, p = bl_fit_scene(dt)
+
+    def render(pl, mark=lambda name: None):
+        geo = KerrBL(radius=pl["radius"], a=pl["a"], horizon_epsilon=scene.geometry.horizon_epsilon)
+        moved = dataclasses.replace(scene, geometry=geo)
+        mark("scene_build")
+        return fast_path.trace_rays_fast_diff(moved, x, p, spec=spec).color
+
+    as_params = lambda a: {"radius": torch.tensor(1.0, dtype=dt, device="cuda"),
+                           "a": torch.tensor(a, dtype=dt, device="cuda")}
+    with torch.no_grad():
+        target = render(as_params(BL_FIT_TRUE))
+    torch.cuda.synchronize()
+    rows = []
+    clock = [time.perf_counter()]
+
+    def callback(step, loss, params, grads):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rows.append({
+            "step": step, "loss": loss, "a": float(params["a"].detach()),
+            "grads": {k: float(g) for k, g in grads.items()}, "s": now - clock[0],
+            "k3_ms": sum(s.elapsed_time(e) for s, e in gm.bl_launch_timer),
+            "k4_ms": sum(s.elapsed_time(e) for s, e in gadj.bl_launch_timer),
+        })
+        gm.bl_launch_timer.clear()
+        gadj.bl_launch_timer.clear()
+        print(json.dumps(rows[-1]), flush=True)
+        clock[0] = time.perf_counter()
+
+    gm.bl_launches = 0
+    gadj.bl_launches = 0
+    gm.bl_launch_timer, gadj.bl_launch_timer = [], []
+    params, losses = inverse.fit(
+        render, as_params(BL_FIT_START), target, trainable=("a",), steps=BL_FIT_STEPS, learning_rate=3e-2,
+        callback=callback,
+    )
+    k3_launches, k4_launches = gm.bl_launches, gadj.bl_launches
+    gm.bl_launch_timer = gadj.bl_launch_timer = None
+    split, busy = fit_step_breakdown(render, inverse.image_loss, target, as_params(BL_FIT_START))
+    mean = lambda key: sum(r[key] for r in rows) / len(rows)
+    a_final = float(params["a"].detach())
+    summary = {
+        "frame": f"{BL_FIT_SIZE}x{BL_FIT_SIZE}", "max_steps": BL_FIT_BUDGET, "mino_budget": 2 * BL_FIT_BUDGET,
+        "steps": BL_FIT_STEPS, "k3_launches": k3_launches, "k4_launches": k4_launches,
+        "loss_first": losses[0], "loss_last": losses[-1], "a_start": BL_FIT_START, "a_final": a_final,
+        "a_true": BL_FIT_TRUE, "s_per_step": mean("s"), "k3_ms_per_step": mean("k3_ms"),
+        "k4_ms_per_step": mean("k4_ms"), "step_breakdown_s": split, "device_busy_share": busy,
+    }
+    if not all(math.isfinite(g) for r in rows for g in r["grads"].values()):
+        fail(f"a BL fit gradient is not finite: {rows}")
+    if not any(r["grads"]["a"] != 0.0 for r in rows):
+        fail(f"the BL fit's da is zero on every step: {rows}")
+    if k3_launches == 0 or k4_launches == 0:
+        fail(f"the BL fit launched K3 {k3_launches} and K4 {k4_launches} times")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"the BL fit's loss did not fall: {losses}")
+    if not abs(a_final - BL_FIT_TRUE) < abs(BL_FIT_START - BL_FIT_TRUE):
+        fail(f"the BL fit's spin did not move toward {BL_FIT_TRUE}: {a_final}")
     return summary
 
 
@@ -635,11 +1009,13 @@ def main():
         "stop_counts_pass1": stops.tolist(),
     }
     print(json.dumps(main), flush=True)
+    # The pass-1 rays that stop NAN, for the reference's verdict on them.
+    print(json.dumps(nan_lanes_report()), flush=True)
 
     phase("5. K1 with checkpoints against its plain version")
     marches = {}
     for dtype in (torch.float32, torch.float64):
-        r, marches[dtype], fit_spec = compare_march_ckpt(dtype)
+        r, marches[dtype], fit_spec, _ = compare_march_ckpt(dtype)
         print(json.dumps(r), flush=True)
         if not r["ok"]:
             fail(f"K1 with checkpoints disagrees with its plain version: {r}")
@@ -660,9 +1036,80 @@ def main():
     fit = fit_phase()
     print(json.dumps(fit), flush=True)
 
-    phase("8. kernels")
+    phase("8. K3 against its plain version")
+    bl_flops_step = count_bl_step_flops()
+    print(f"flops per ray-step of the BL march (plain step, counted): {bl_flops_step}")
+    bl_variants = {}
+    for dtype in (torch.float32, torch.float64):
+        for compensated in (False, True):
+            # The main path's configuration runs its whole budget; the plain
+            # march costs ~4.5 ms an iteration whatever the lane count, so the
+            # other variants compare their first BL_COMPARE_ATTEMPTS steps.
+            full = dtype == torch.float32 and not compensated
+            r = compare_march(dtype, compensated, bl_flops_step, bl=True,
+                              attempts=None if full else BL_COMPARE_ATTEMPTS)
+            bl_variants[(dtype, compensated)] = r
+            print(json.dumps(r), flush=True)
+            if not r["ok"]:
+                fail(f"K3 disagrees with its plain version: {r}")
+    bl_marches, bl_consts = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        r, bl_marches[dtype], bl_spec, bl_consts[dtype] = compare_march_ckpt(
+            dtype, bl=True, attempts=None if dtype == torch.float32 else BL_COMPARE_ATTEMPTS)
+        bl_variants[(dtype, "ckpt")] = r
+        print(json.dumps(r), flush=True)
+        if not r["ok"]:
+            fail(f"K3 with checkpoints disagrees with its plain version: {r}")
+
+    phase("9. BL main path: CLI render of kerr-bl.toml")
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "render-kerr-bl.png")
+        out, total_s, bl_render_launches, k3_ms = cli_render(KERR_BL_TOML, FRAME, BL_CAMERA, png, gm, "bl_launches")
+        if bl_render_launches == 0:
+            fail("the BL main path launched K3 no time")
+        bl_main = check_frame(out, png, FRAME, (1, 2, 7), "kerr-bl.toml")
+    bl_main.update({"max_steps": MAX_STEPS, "mino_budget": 2 * MAX_STEPS, "total_s": total_s,
+                    "k3_launches": bl_render_launches, "k3_ms": k3_ms,
+                    "k3_bound_ms": (bl_main["pass1_ray_steps"] + bl_main["aa_ray_steps"]) * bl_flops_step
+                    / card_peak_flops(torch.float32) * 1e3})
+    print(json.dumps(bl_main), flush=True)
+
+    phase("10. Schwarzschild through K3 at a = 0")
+    with tempfile.TemporaryDirectory() as tmp:
+        toml = os.path.join(tmp, "schwarzschild-disc.toml")
+        with open(toml, "w") as f:
+            f.write(SCHWARZSCHILD_DISC_TOML)
+        png = os.path.join(tmp, "render-schwarzschild.png")
+        out, total_s, sch_launches, sch_ms = cli_render(toml, SCHWARZSCHILD_SIZE, BL_CAMERA, png, gm, "bl_launches")
+        if sch_launches == 0:
+            fail("the Schwarzschild path launched K3 no time")
+        sch = check_frame(out, png, SCHWARZSCHILD_SIZE, (1, 2), "Schwarzschild")
+        if sch["hit_pixels"] == 0 or sch["stop_counts_pass1"][7] == 0:
+            fail(f"no disc hit in the Schwarzschild frame: {sch}")
+    sch.update({"total_s": total_s, "k3_launches": sch_launches, "k3_ms": sch_ms})
+    print(json.dumps(sch), flush=True)
+
+    phase("11. K4 against its plain version")
+    bl_flops_vjp = count_bl_vjp_flops()
+    print(f"flops per ray of a BL reverse step's VJP (plain step map + VJP, counted): {bl_flops_vjp}")
+    bl_sweeps = {}
+    for dtype in (torch.float64, torch.float32):
+        r = compare_adjoint(dtype, bl_marches[dtype], bl_spec, bl_flops_step, bl_flops_vjp, bl_consts[dtype])
+        bl_sweeps[dtype] = r
+        print(json.dumps(r), flush=True)
+        if not r["ok"]:
+            fail(f"K4 disagrees with its plain version: {r}")
+    del bl_marches
+
+    phase("12. BL gradient path: the 12-step spin fit")
+    bl_fit = bl_fit_phase()
+    print(json.dumps(bl_fit), flush=True)
+
+    phase("13. kernels")
     prod = variants[(torch.float32, False)]
     sweep = sweeps[torch.float32]
+    bl_prod = bl_variants[(torch.float32, False)]
+    bl_sweep = bl_sweeps[torch.float32]
     kernels = [{
         "name": "kerr_rk4_march",
         "route": "cuda",
@@ -687,6 +1134,32 @@ def main():
         "plain_ms": sweep["plain_ms"],
         "bound_ms": sweep["bound_ms"],
         "bound_by": sweep["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "kerr_bl_rk4_march",
+        "route": "cuda",
+        "source": "gr_raytracer_tpu_torch/csrc/kerr_bl_march.cu",
+        "replaces": "gr_raytracer_tpu/ops/geodesic_pallas.py:1235",
+        "launches": bl_render_launches + sch_launches + bl_fit["k3_launches"],
+        "launches_by_path": {"render_kerr_bl": bl_render_launches, "render_schwarzschild": sch_launches,
+                             "fit": bl_fit["k3_launches"]},
+        "max_abs_err": max(bl_prod["max_abs_err"], bl_variants[(torch.float32, True)]["max_abs_err"]),
+        "ms": bl_prod["kernel_ms"],
+        "plain_ms": bl_prod["plain_ms"],
+        "bound_ms": bl_prod["bound_ms"],
+        "bound_by": bl_prod["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "kerr_bl_adjoint",
+        "route": "cuda",
+        "source": "gr_raytracer_tpu_torch/csrc/kerr_bl_adjoint.cu",
+        "replaces": "gr_raytracer_tpu/ops/geodesic_adjoint.py:739",
+        "launches": bl_fit["k4_launches"],
+        "max_abs_err": bl_sweep["max_abs_err"],
+        "ms": bl_sweep["kernel_ms"],
+        "plain_ms": bl_sweep["plain_ms"],
+        "bound_ms": bl_sweep["bound_ms"],
+        "bound_by": bl_sweep["bound_by"],
         "library_ms": None,
     }]
     print(f"wall {time.perf_counter() - t_all:.1f}s")

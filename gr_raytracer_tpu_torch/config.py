@@ -2,9 +2,9 @@
 gr_raytracer_tpu/config.py).
 
 `parse_config` reads every scene file of scene-definitions/. `create_scene`
-assembles the geometries and objects this port supports so far — Kerr with
-thin discs and BlackBody, Checker or Bitmap textures — and raises
-ConfigError for the rest.
+assembles the geometries and objects this port supports so far — Kerr,
+KerrBL and Schwarzschild with thin discs and BlackBody, Checker or Bitmap
+textures — and raises ConfigError for the rest.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ import torch
 
 from gr_raytracer_tpu_torch.geometry import chart as charts
 from gr_raytracer_tpu_torch.geometry.kerr import Kerr
+from gr_raytracer_tpu_torch.geometry.kerr_bl import KerrBL
+from gr_raytracer_tpu_torch.geometry.schwarzschild import Schwarzschild
 from gr_raytracer_tpu_torch.objects.disc import Disc
 from gr_raytracer_tpu_torch.rendering import camera as cam
 from gr_raytracer_tpu_torch.rendering import integrator as integ
@@ -141,10 +143,13 @@ def load_config(path: str) -> RenderConfig:
 def build_geometry(cfg: RenderConfig, dtype, device):
     g = cfg.geometry_type
     kind = g["kind"]
-    if kind != "Kerr":
-        raise ConfigError(f"geometry {kind!r} is not yet ported (Kerr only)")
     as_ = lambda k: torch.tensor(float(g[k]), dtype=dtype, device=device)
-    return Kerr(radius=as_("radius"), a=as_("a"), horizon_epsilon=as_("horizon_epsilon"))
+    if kind == "Schwarzschild":
+        return Schwarzschild(radius=as_("radius"), horizon_epsilon=as_("horizon_epsilon"))
+    if kind in ("Kerr", "KerrBL"):
+        cls = Kerr if kind == "Kerr" else KerrBL
+        return cls(radius=as_("radius"), a=as_("a"), horizon_epsilon=as_("horizon_epsilon"))
+    raise ConfigError(f"geometry {kind!r} is not yet ported (Kerr, KerrBL, Schwarzschild only)")
 
 
 class TextureFactory:
@@ -202,9 +207,11 @@ def build_objects(cfg: RenderConfig, geometry, factory: TextureFactory, dtype, d
         if not obj["inner_radius"] < obj["outer_radius"]:
             raise ConfigError(f"objects[{i}].Disc: inner_radius must be < outer_radius")
         tex = factory.build(obj["texture"])
-        # Novikov-Thorne table: every geometry ported so far is a black hole.
+        # Novikov-Thorne table: every geometry ported so far is a black hole;
+        # Schwarzschild has no spin.
         temperature = build_disc_temperature(
-            geometry.radius, geometry.a, obj["temperature"], obj["outer_radius"], dtype, device
+            geometry.radius, getattr(geometry, "a", 0.0), obj["temperature"], obj["outer_radius"],
+            dtype, device,
         )
         out.append(
             Disc(

@@ -1,0 +1,149 @@
+// Device code shared by the Boyer-Lindquist march (kerr_bl_march.cu, K3)
+// and its reverse sweep (kerr_bl_adjoint.cu, K4).
+//
+// The state is (t, r, θ, φ, v_r, v_θ, 0, 0) in Mino time λ; E, L_z and Q
+// are per-lane constants. As in kerr_ks_common.cuh (whose Dual type and
+// math wrappers this header uses), every function is templated on the
+// scalar type S: float or double for the march, Dual<float> or
+// Dual<double> for the step Jacobian of the reverse sweep, whose value part
+// computes exactly the march's arithmetic. Both kernels are built with
+// -fmad=false (ops/cuda_build.py).
+//
+// The plain torch versions of these functions are in
+// ops/geodesic_march.py (_bl_rhs, _bl_momentum, _bl_embed3, _bl_step_size,
+// _bl_rk4_delta) and ops/geodesic_adjoint.py (_bl_masked_step,
+// _bl_disc_payload); the order of every operation is theirs.
+
+#pragma once
+
+#include "kerr_ks_common.cuh"
+
+namespace bl {
+
+using namespace ks;
+
+__device__ __forceinline__ float abs_(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_(double x) { return fabs(x); }
+// The derivative of |x| is sign(x), 0 at 0 (as jnp.abs's).
+template <typename T>
+__device__ __forceinline__ Dual<T> abs_(Dual<T> x) {
+  const T s = x.v > T(0) ? T(1) : (x.v < T(0) ? T(-1) : T(0));
+  return Dual<T>(abs_(x.v), s * x.d);
+}
+
+// Mino-time dy/dλ for components 0..5 (6 and 7 are 0). The reciprocals
+// 1/Δ, 1/sin²θ and 1/sin³θ share one divide, 1/(Δ·sin²θ). At a pole the
+// result is not finite, and the march stops the lane NAN (_bl_rhs).
+template <typename S>
+__device__ __forceinline__ void mino_rhs(S r_s, S a, S e, S l_z, S q, const S* y, S* out) {
+  const S r = y[1], theta = y[2];
+  const S delta = r * r - r_s * r + a * a;
+  const S p_r = (r * r + a * a) * e - a * l_z;
+  const S st = sin_(theta);
+  const S ct = cos_(theta);
+  const S sin2 = st * st;
+  const S inv_ds = S(1) / (delta * sin2);
+  const S inv_delta = inv_ds * sin2;
+  const S inv_sin2 = inv_ds * delta;
+  out[0] = (r * r + a * a) * inv_delta * p_r + a * (l_z - a * e * sin2);
+  out[1] = y[4];
+  out[2] = y[5];
+  out[3] = a * inv_delta * p_r + l_z * inv_sin2 - a * e;
+  const S lae = l_z - a * e;
+  const S carter_term = lae * lae + q;
+  out[4] = S(0.5) * (S(4) * r * e * p_r - (S(2) * r - r_s) * carter_term);
+  const S inv_st3 = st * inv_sin2 * inv_sin2;
+  out[5] = S(0.5) * (S(-2) * a * a * e * e * ct * st + S(2) * l_z * l_z * ct * inv_st3);
+}
+
+// p^μ = (1/Σ)(dt/dλ, v_r, v_θ, dφ/dλ); each reciprocal is its own divide
+// (_bl_momentum).
+template <typename S>
+__device__ __forceinline__ void bl_momentum(S r_s, S a, S e, S l_z, const S* y, S* p) {
+  const S r = y[1], theta = y[2];
+  const S ct = cos_(theta);
+  const S sig = r * r + a * a * (ct * ct);
+  const S delta = r * r - r_s * r + a * a;
+  const S p_r = (r * r + a * a) * e - a * l_z;
+  const S st = sin_(theta);
+  const S sin2 = st * st;
+  const S dt = (r * r + a * a) / delta * p_r + a * (l_z - a * e * sin2);
+  const S dphi = a / delta * p_r + l_z / sin2 - a * e;
+  p[0] = dt / sig;
+  p[1] = y[4] / sig;
+  p[2] = y[5] / sig;
+  p[3] = dphi / sig;
+}
+
+// The Kerr-Schild Cartesian embedding of a BL position (_bl_embed3).
+template <typename S>
+__device__ __forceinline__ void bl_embed3(S a, const S* y, S* out) {
+  const S sp = sin_(y[3]), cp = cos_(y[3]);
+  const S st = sin_(y[2]), ct = cos_(y[2]);
+  out[0] = (y[1] * cp - a * sp) * st;
+  out[1] = (y[1] * sp + a * cp) * st;
+  out[2] = y[1] * ct;
+}
+
+// Step-rule constants of the march (host floats rounded to T).
+template <typename T>
+struct MinoRule {
+  T h0, h_min_frac, r_ref;
+};
+
+// One Mino-time RK4 increment y_new − y from state y, with
+// h = h0/|E| / (1 + (r/r_ref)²) · clip((r − r₊)/r_ref, h_min_frac, 1)
+// (_bl_step_size, _bl_rk4_delta). No far-field lever.
+template <typename S, typename T>
+__device__ __forceinline__ void mino_rk4_delta(const MinoRule<T>& R, S radius, S a, S r_plus, S e,
+                                          S l_z, S q, S inv_e, const S* y, S* delta) {
+  const S r_here = y[1];
+  const S u = r_here / S(R.r_ref);
+  const S gap = clip((r_here - r_plus) / S(R.r_ref), S(R.h_min_frac), S(1));
+  const S h = S(R.h0) * inv_e / (S(1) + u * u) * gap;
+  const S half_h = S(0.5) * h;
+  S k[6], acc[6], tmp[8];
+  tmp[6] = y[6];
+  tmp[7] = y[7];
+  mino_rhs(radius, a, e, l_z, q, y, k);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    acc[i] = k[i];
+    tmp[i] = y[i] + half_h * k[i];
+  }
+  mino_rhs(radius, a, e, l_z, q, tmp, k);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    acc[i] = acc[i] + S(2) * k[i];
+    tmp[i] = y[i] + half_h * k[i];
+  }
+  mino_rhs(radius, a, e, l_z, q, tmp, k);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    acc[i] = acc[i] + S(2) * k[i];
+    tmp[i] = y[i] + h * k[i];
+  }
+  mino_rhs(radius, a, e, l_z, q, tmp, k);
+  const S h6 = h / S(6);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) delta[i] = h6 * (acc[i] + k[i]);
+  delta[6] = h6 * S(0);
+  delta[7] = h6 * S(0);
+}
+
+// 1/max(|E|, 1e-12), the march's per-lane step scale.
+template <typename S>
+__device__ __forceinline__ S inv_energy(S e) {
+  return S(1) / nmax(abs_(e), S(1e-12));
+}
+
+// The state is usable when components 0..5 are finite.
+template <typename T>
+__device__ __forceinline__ bool state_finite(const T* y) {
+  bool ok = true;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) ok = ok && is_finite(y[i]);
+  return ok;
+}
+
+}  // namespace bl

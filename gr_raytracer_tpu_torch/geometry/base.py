@@ -19,9 +19,14 @@ def unit_time_vector(x):
 
 class Geometry:
     """Frame and observer methods shared by the geometries. A subclass
-    provides chart, spin, signature(), metric(x), tetrad(x),
+    provides chart, signature(), metric(x), tetrad(x),
     radial_coordinate(x, chart), orbit_coefficients_at_radius(r),
     axial_killing(x), stationary_velocity(x) and make_solver(x0, p0)."""
+
+    @property
+    def spin(self):
+        """The BL-embedding spin used by chart conversions (0 unless Kerr)."""
+        return 0.0
 
     def inner_product(self, x, v, w):
         """g_{μν} v^μ w^ν at x."""

@@ -1,33 +1,34 @@
-"""Reverse mode through the Kerr-Schild march: checkpointed reverse sweep
-(counterpart of gr_raytracer_tpu/ops/geodesic_adjoint.py, Kerr-Schild
-part).
+"""Reverse mode through the marches: checkpointed reverse sweeps
+(counterpart of gr_raytracer_tpu/ops/geodesic_adjoint.py).
 
-  forward   ops/geodesic_march.kerr_rk4_march with ckpt_every = K: the
-            production march (K1) plus the pre-step state every K
-            iterations, [S, 8, N].
-  backward  the reverse sweep (K2): per lane, segments in reverse order;
-            each re-forwards its steps from the checkpoint, replaying the
-            march bit for bit, then walks them backwards applying the VJP of
-            the whole step (RK4, the radius-scaled h, the far-field lever
-            and the slot-0 disc payload) to carry the adjoint λ and the
-            per-lane partials ∂L/∂radius, ∂L/∂a.
+  forward   ops/geodesic_march.kerr_rk4_march (K1) or kerr_bl_rk4_march
+            (K3) with ckpt_every = K: the production march plus the
+            pre-step state every K iterations, [S, 8, N].
+  backward  the reverse sweep (K2 for Kerr-Schild, K4 for Boyer-Lindquist):
+            per lane, segments in reverse order; each re-forwards its steps
+            from the checkpoint, replaying the march bit for bit, then walks
+            them backwards applying the VJP of the whole step (RK4, the step
+            rule, the far-field lever of K1 and the slot-0 disc payload) to
+            carry the adjoint λ and the per-lane partials ∂L/∂radius,
+            ∂L/∂a, and on the BL march ∂L/∂E, ∂L/∂L_z, ∂L/∂Q.
 
 For tensors on the card the backward launches the hand-written CUDA kernel
-csrc/kerr_ks_adjoint.cu; for tensors on the CPU it runs
-`ks_march_bwd_plain`, the same sweep in plain torch with torch.func.vjp of
-the plain step.
+(csrc/kerr_ks_adjoint.cu, csrc/kerr_bl_adjoint.cu); for tensors on the CPU
+it runs the same sweep in plain torch (`ks_march_bwd_plain`,
+`bl_march_bwd_plain`) with torch.func.vjp of the plain step.
 
 The VJP differentiates the discrete march (same steps, same masks), not a
 continuous adjoint. Stop codes, the crossing step and the cost sort are
-locally constant. Scope: Kerr-Schild scenes with thin discs whose textures
-are all opaque, so that the only shaded event is slot 0, recorded at the
-lane's last step. The sphere payload is not yet ported.
+locally constant. Scope: scenes with thin discs whose textures are all
+opaque, so that the only shaded event is slot 0, recorded at the lane's
+last step. The sphere payload is not yet ported.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -44,10 +45,13 @@ K_CKPT = 128  # steps per checkpoint segment
 # forward is chaotic beyond f32 and carries no usable signal.
 LAM_CAP = 1e15
 
-# Launches of the CUDA kernel (the plain version does not count).
+# Launches of the CUDA kernels K2 and K4 (the plain versions do not count).
 launches = 0
-# When set to a list, each kernel launch appends its (start, end) CUDA events.
+bl_launches = 0
+# When set to a list, each launch of K2 (K4) appends its (start, end) CUDA
+# events.
 launch_timer = None
+bl_launch_timer = None
 
 
 class SweepConfig(NamedTuple):
@@ -109,6 +113,13 @@ def _disc_payload(discs, ev_kind0, y, y_new):
     frac = torch.where(ok, z_prev, 0.0) / torch.where(ok, den_raw, 1.0)
     px = y[1] + frac * (y_new[1] - y[1])
     py = y[2] + frac * (y_new[2] - y[2])
+    u, v = _disc_uv(discs, ev_kind0, px, py)
+    return frac, px, py, u, v
+
+
+def _disc_uv(discs, ev_kind0, px, py):
+    """The disc UV of a crossing point, with the bounds of the disc that the
+    slot-0 kind names; the radius is guarded by max(·, 1e-30)."""
     rr = torch.sqrt(torch.maximum(px * px + py * py, px.new_tensor(1e-30)))
     phi = torch.atan2(py, px)
     inner = torch.zeros_like(px) + float(discs[0].inner)
@@ -118,9 +129,7 @@ def _disc_payload(discs, ev_kind0, y, y_new):
         inner = torch.where(sel, float(d.inner), inner)
         outer = torch.where(sel, float(d.outer), outer)
     r_norm = (rr - inner) / (outer - inner)
-    u = 0.5 + 0.5 * r_norm * torch.cos(phi)
-    v = 0.5 + 0.5 * r_norm * torch.sin(phi)
-    return frac, px, py, u, v
+    return 0.5 + 0.5 * r_norm * torch.cos(phi), 0.5 + 0.5 * r_norm * torch.sin(phi)
 
 
 def _step_with_payload(discs, spheres, h0, h_min_frac, r_ref_scale, r_safe, ev_kind0, radius, a, y, active):
@@ -212,79 +221,206 @@ def ks_march_bwd_plain(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, radi
 
 
 # ---------------------------------------------------------------------------
+# The Boyer-Lindquist (Mino-time) step map and its reverse sweep. The march's
+# per-lane E, L_z, Q are inputs of the step, so their partials come out per
+# lane beside λ; Schwarzschild scenes take this route at a = 0.
+# ---------------------------------------------------------------------------
+
+
+def _bl_masked_step(radius, a, h0, h_min_frac, r_ref_scale, e, l_z, q, y, active):
+    """One masked Mino-time RK4 advance, op for op the march's
+    (geodesic_march._bl_plain_step, csrc/kerr_bl_common.cuh). r₊'s sqrt is
+    guarded by max(·, 1e-30) (the march: 0), the same value for every
+    sub-extremal spin and a finite derivative at a → M."""
+    c = lambda v: torch.tensor(float(v), dtype=y.dtype, device=y.device)
+    m = 0.5 * radius
+    r_plus = m + torch.sqrt(torch.maximum(m * m - a * a, c(1e-30)))
+    inv_e = 1.0 / torch.maximum(torch.abs(e), c(1e-12))
+    rule = {"radius": radius, "a": a, "h0": c(h0), "r_ref": c(r_ref_scale), "h_min_frac": h_min_frac}
+    y_new = y + gm._bl_rk4_delta(rule, e, l_z, q, inv_e, r_plus, y)
+    return torch.where(active[None], y_new, y)
+
+
+def _bl_disc_payload(discs, ev_kind0, radius, a, e, l_z, y, y_new):
+    """The slot-0 payload of the BL step y → y_new, as the march stores it:
+    the θ = π/2 crossing, the Kerr-Schild embedding of the crossing point,
+    the interpolated BL momentum, the disc UV and the embedded segment; the
+    division guard is |Δθ| ≥ 1e-12, as in the Kerr-Schild payload."""
+    half_pi = y.new_tensor(math.pi / 2)
+    d_prev = y[2] - half_pi
+    d_new = y_new[2] - half_pi
+    den_raw = d_prev - d_new
+    ok = torch.abs(den_raw) >= 1e-12
+    frac = torch.where(ok, d_prev, 0.0) / torch.where(ok, den_raw, 1.0)
+    r_c = y[1] + frac * (y_new[1] - y[1])
+    phi_c = y[3] + frac * (y_new[3] - y[3])
+    sp, cp = torch.sin(phi_c), torch.cos(phi_c)
+    px = r_c * cp - a * sp
+    py = r_c * sp + a * cp
+    u, v = _disc_uv(discs, ev_kind0, px, py)
+    p_prev = gm._bl_momentum(radius, a, e, l_z, y)
+    p_new = gm._bl_momentum(radius, a, e, l_z, y_new)
+    p_interp = p_prev + frac[None] * (p_new - p_prev)
+    seg = gm._bl_embed3(a, y_new) - gm._bl_embed3(a, y)
+    return torch.cat([px[None], py[None], torch.zeros_like(px)[None], p_interp, u[None], v[None], seg])
+
+
+def _bl_step_with_payload(discs, h0, h_min_frac, r_ref_scale, ev_kind0, radius, a, e, l_z, q, y, active):
+    """y ↦ (y_new [8, N], payload [12, N]) of the BL march."""
+    y_new = _bl_masked_step(radius, a, h0, h_min_frac, r_ref_scale, e, l_z, q, y, active)
+    return y_new, _bl_disc_payload(discs, ev_kind0, radius, a, e, l_z, y, y_new)
+
+
+def bl_march_bwd_plain(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, radius, a, e, l_z, q, cfg):
+    """The BL reverse sweep in plain torch; arguments as
+    `ks_march_bwd_plain` plus the march's per-lane E, L_z, Q [N]. Returns
+    (d_y0 [N, 8], d_e [N], d_l_z [N], d_q [N], d_radius [N], d_a [N]) per
+    lane. A lane is active at a step while seg·K + k < steps and its state
+    (components 0..5) is finite."""
+    n = ct_y.shape[0]
+    dtype, device = ct_y.dtype, ct_y.device
+    sc = lambda v: torch.as_tensor(v, dtype=dtype, device=device).detach()
+    radius, a = sc(radius), sc(a)
+    e, l_z, q = sc(e), sc(l_z), sc(q)
+    step_kw = dict(h0=float(sc(cfg.h0)), h_min_frac=float(sc(cfg.h_min_frac)),
+                   r_ref_scale=float(sc(cfg.r_ref_scale)))
+    discs = tuple(gm.DiscSpec(float(sc(d.inner)), float(sc(d.outer)), int(d.kind)) for d in cfg.discs)
+    lam = ct_y.T.clone()  # [8, N]
+    lam = torch.where(_trusted(lam)[None], lam, 0.0)
+    zeros = lambda: torch.zeros(n, dtype=dtype, device=device)
+    d_e, d_lz, d_q, d_r, d_a = zeros(), zeros(), zeros(), zeros(), zeros()
+    steps = steps.long()
+    live = grad_ok != 0
+    k = int(cfg.k_ckpt)
+    for seg in reversed(range(ckpt.shape[0])):
+        start = seg * k
+        idx = torch.nonzero(live & (steps > start)).flatten()
+        if idx.numel() == 0:
+            continue
+        k_eff = torch.clamp(steps[idx] - start, max=k)
+        kind0 = ev_kind0[idx]
+        r_t, a_t = radius.expand(idx.numel()), a.expand(idx.numel())
+        e_i, lz_i, q_i = e[idx], l_z[idx], q[idx]
+        # Re-forward, keeping the pre-step states.
+        y = ckpt[seg][:, idx]
+        states, acts = [], []
+        for j in range(int(k_eff.max())):
+            act = (j < k_eff) & torch.isfinite(y[0:6]).all(dim=0)
+            states.append(y)
+            acts.append(act)
+            y = _bl_masked_step(r_t, a_t, y=y, active=act, e=e_i, l_z=lz_i, q=q_i, **step_kw)
+        # Reverse sweep.
+        for j in reversed(range(len(states))):
+            sub = torch.nonzero(acts[j]).flatten()
+            if sub.numel() == 0:
+                continue
+            lanes = idx[sub]
+            m = sub.numel()
+            stored = (has_ev[lanes] != 0) & (steps[lanes] - 1 == start + j)
+            ct_p = torch.where(stored[None], ct_ev[lanes].T, 0.0)
+            step = functools.partial(
+                _bl_step_with_payload, discs, ev_kind0=kind0[sub],
+                active=torch.ones(m, dtype=torch.bool, device=device), **step_kw,
+            )
+            _, vjp = torch.func.vjp(
+                lambda r_, a_, e_, lz_, q_, y_: step(radius=r_, a=a_, e=e_, l_z=lz_, q=q_, y=y_),
+                radius.expand(m), a.expand(m), e[lanes], l_z[lanes], q[lanes], states[j][:, sub],
+            )
+            d_r_l, d_a_l, d_e_l, d_lz_l, d_q_l, lam_new = vjp((lam[:, lanes], ct_p))
+            trust = _trusted(lam_new, d_r_l, d_a_l, d_e_l, d_lz_l, d_q_l)
+            lam[:, lanes] = torch.where(trust[None], lam_new, 0.0)
+            for acc, part in ((d_r, d_r_l), (d_a, d_a_l), (d_e, d_e_l), (d_lz, d_lz_l), (d_q, d_q_l)):
+                acc[lanes] += torch.where(trust, part, 0.0)
+    return lam.T.contiguous(), d_e, d_lz, d_q, d_r, d_a
+
+
+# ---------------------------------------------------------------------------
 # The CUDA kernel
 # ---------------------------------------------------------------------------
 
-_SOURCE = "kerr_ks_adjoint.cu"
+# The two sweeps: K2 (Kerr-Schild) and K4 (Boyer-Lindquist). Entry points
+# take (ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0[, e, l_z, q], n,
+# d_y0[, d_e, d_l_z, d_q], d_radius, d_a, scratch, params, discs, n_discs,
+# ints, stream) and return the CUDA error code of the launch.
+_KERNELS = {
+    False: ("kerr_ks_adjoint", "kerr_ks_adjoint.cu"),
+    True: ("kerr_bl_adjoint", "kerr_bl_adjoint.cu"),
+}
 _bound: dict = {}
 
 
-def _entry(dtype):
-    """The kernel's C entry point for `dtype`, built on first use."""
-    fn = _bound.get(dtype)
+def _entry(bl, dtype):
+    """A sweep's C entry point for `dtype`, built on first use."""
+    fn = _bound.get((bl, dtype))
     if fn is None:
         from gr_raytracer_tpu_torch.ops import cuda_build
 
-        lib = cuda_build.load(_SOURCE)
-        fn = lib.kerr_ks_adjoint_f32 if dtype == torch.float32 else lib.kerr_ks_adjoint_f64
+        stem, source = _KERNELS[bl]
+        lib = cuda_build.load(source)
+        fn = getattr(lib, f"{stem}_f32" if dtype == torch.float32 else f"{stem}_f64")
         p = ctypes.c_void_p
-        fn.argtypes = [
-            p, p, p, p, p, p, p, ctypes.c_int64, p, p, p, p,
+        n_lane = 3 if bl else 0  # e, l_z, q in; d_e, d_l_z, d_q out
+        fn.argtypes = [p] * (7 + n_lane) + [ctypes.c_int64] + [p] * (4 + n_lane) + [
             ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double), ctypes.c_int,
             ctypes.POINTER(ctypes.c_int), p,
         ]
         fn.restype = ctypes.c_int
-        _bound[dtype] = fn
+        _bound[(bl, dtype)] = fn
     return fn
 
 
-def _bwd_cuda(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, radius, a, cfg):
-    global launches
+def _bwd_cuda(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, radius, a, cfg, consts=()):
+    """Launch K2 (consts empty) or K4 (consts = (e, l_z, q)); returns
+    (d_y0, [d_e, d_l_z, d_q,] d_radius, d_a) per lane."""
+    global launches, bl_launches
+    bl = bool(consts)
     n = ct_y.shape[0]
     dev, dtype = ct_y.device, ct_y.dtype
     ints32 = (steps, grad_ok, has_ev, ev_kind0)
-    if ckpt.dtype != dtype or ct_ev.dtype != dtype or any(t.dtype != torch.int32 for t in ints32):
+    floats = (ckpt, ct_ev) + tuple(consts)
+    if any(t.dtype != dtype for t in floats) or any(t.dtype != torch.int32 for t in ints32):
         raise TypeError("the reverse sweep takes float ckpt/cotangents of one dtype and i32 lane data")
     if ckpt.dim() != 3 or ckpt.shape[1:] != (8, n) or ct_y.shape != (n, 8) or ct_ev.shape != (n, gm.EVENT_WIDTH):
         raise ValueError("the reverse sweep takes ckpt [S, 8, N], ct_y [N, 8], ct_ev [N, 12]")
-    tensors = (ckpt, ct_y, ct_ev) + ints32
+    if any(t.shape != (n,) for t in ints32 + tuple(consts)):
+        raise ValueError("the reverse sweep takes [N] lane data")
+    tensors = (ckpt, ct_y, ct_ev) + ints32 + tuple(consts)
     if any(t.device != dev or not t.is_contiguous() for t in tensors):
         raise ValueError("the reverse sweep takes contiguous tensors on one device")
     if len(cfg.discs) > gm.MAX_DISCS or not cfg.discs:
         raise NotImplementedError(f"the reverse sweep takes 1 to {gm.MAX_DISCS} discs")
     d_y0 = torch.empty_like(ct_y)
-    d_r = torch.empty(n, dtype=dtype, device=dev)
-    d_a = torch.empty(n, dtype=dtype, device=dev)
+    partials = [torch.empty(n, dtype=dtype, device=dev) for _ in range(5 if bl else 2)]
     # Pre-step states of the segment being swept, [K, 8, N], lanes fastest.
     scratch = torch.empty((cfg.k_ckpt, 8, n), dtype=dtype, device=dev)
-    params = (ctypes.c_double * 6)(
-        float(radius), float(a), float(cfg.h0), float(cfg.h_min_frac), float(cfg.r_ref_scale),
-        float(cfg.r_safe),
-    )
+    vals = (radius, a, cfg.h0, cfg.h_min_frac, cfg.r_ref_scale) + (() if bl else (cfg.r_safe,))
+    params = (ctypes.c_double * len(vals))(*[float(v) for v in vals])
     disc_rows = (ctypes.c_double * (3 * gm.MAX_DISCS))(
         *[float(v) for d in cfg.discs for v in (d.inner, d.outer, d.kind)]
     )
     ints = (ctypes.c_int * 2)(int(ckpt.shape[0]), int(cfg.k_ckpt))
-    fn = _entry(dtype)
+    fn = _entry(bl, dtype)
+    timer = bl_launch_timer if bl else launch_timer
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
-        timed = launch_timer is not None
-        if timed:
+        if timer is not None:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record(stream)
         err = fn(
-            ckpt.data_ptr(), ct_y.data_ptr(), ct_ev.data_ptr(), steps.data_ptr(),
-            grad_ok.data_ptr(), has_ev.data_ptr(), ev_kind0.data_ptr(), n, d_y0.data_ptr(),
-            d_r.data_ptr(), d_a.data_ptr(), scratch.data_ptr(), params, disc_rows,
-            len(cfg.discs), ints, stream.cuda_stream,
+            *(t.data_ptr() for t in (ckpt, ct_y, ct_ev) + ints32 + tuple(consts)), n,
+            d_y0.data_ptr(), *(t.data_ptr() for t in partials), scratch.data_ptr(), params,
+            disc_rows, len(cfg.discs), ints, stream.cuda_stream,
         )
         if err != 0:
-            raise RuntimeError(f"kerr_ks_adjoint kernel launch failed: CUDA error {err}")
-        launches += 1
-        if timed:
+            raise RuntimeError(f"{_KERNELS[bl][0]} kernel launch failed: CUDA error {err}")
+        if bl:
+            bl_launches += 1
+        else:
+            launches += 1
+        if timer is not None:
             end.record(stream)
-            launch_timer.append((start, end))
-    return d_y0, d_r, d_a
+            timer.append((start, end))
+    return (d_y0, *partials)
 
 
 def ks_march_bwd(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, radius, a, cfg):
@@ -361,5 +497,71 @@ def make_ks_march_diff(
 
     def march(radius, a, horizon_eps, max_radius, y0):
         return _KSMarchDiff.apply(radius, a, horizon_eps, max_radius, y0, cfg)
+
+    return march
+
+
+def bl_march_bwd(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, radius, a, e, l_z, q, cfg):
+    """The BL reverse sweep: the CUDA kernel for tensors on the card,
+    `bl_march_bwd_plain` for tensors on the CPU. Same arguments and per-lane
+    results as `bl_march_bwd_plain`."""
+    if ct_y.device.type == "cpu":
+        return bl_march_bwd_plain(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, radius, a,
+                                  e, l_z, q, cfg)
+    if ct_y.device.type != "cuda":
+        raise ValueError(f"unsupported device {ct_y.device}")
+    return _bwd_cuda(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, radius, a, cfg,
+                     consts=(e, l_z, q))
+
+
+class _BLMarchDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, radius, a, e, l_z, q, y0, horizon_eps, max_radius, cfg):
+        host = lambda v: float(torch.as_tensor(v).detach())
+        e, l_z, q = (v.contiguous() for v in (e, l_z, q))
+        out = gm.kerr_bl_rk4_march(
+            host(radius), host(a), host(horizon_eps), y0.contiguous(), e, l_z, q, h0=cfg.h0,
+            max_steps=cfg.max_steps, max_radius=float(max_radius), discs=cfg.discs,
+            h_min_frac=cfg.h_min_frac, r_ref_scale=cfg.r_ref_scale, opaque_stop=True,
+            ckpt_every=cfg.k_ckpt,
+        )
+        y_f, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, ckpt = out
+        ctx.save_for_backward(radius, a, e, l_z, q, ckpt, stop, steps, ev_kind, ev_count)
+        ctx.cfg = cfg
+        ctx.mark_non_differentiable(stop, steps, ev_kind, ev_count, ev_ovf)
+        return y_f, ev_data, stop, steps, ev_kind, ev_count, ev_ovf
+
+    @staticmethod
+    def backward(ctx, ct_yf, ct_ev, *_):
+        radius, a, e, l_z, q, ckpt, stop, steps, ev_kind, ev_count = ctx.saved_tensors
+        grad_ok, has_ev, ev_kind0 = sweep_lanes(stop, ev_kind, ev_count)
+        d_y0, d_e, d_lz, d_q, d_r, d_a = bl_march_bwd(
+            ckpt, ct_yf.contiguous(), ct_ev[:, 0, :].contiguous(), steps, grad_ok, has_ev,
+            ev_kind0, radius, a, e, l_z, q, ctx.cfg,
+        )
+        d_radius = torch.sum(d_r).to(radius.dtype).reshape(radius.shape)
+        d_a_sum = torch.sum(d_a).to(a.dtype).reshape(a.shape)
+        return d_radius, d_a_sum, d_e, d_lz, d_q, d_y0, None, None, None
+
+
+def make_bl_march_diff(*, h0, max_steps, discs, h_min_frac=0.02, r_ref_scale=10.0, k_ckpt=K_CKPT):
+    """The differentiable Boyer-Lindquist (Mino-time) march for a static
+    configuration.
+
+    Returns fn(radius, a, horizon_eps, max_radius, e, l_z, q, y0) → (y_f
+    [N, 8], ev_data [N, K, 12], stop, steps, ev_kind, ev_count, ev_ovf),
+    with gradients from y_f and ev_data[:, 0] to radius, a (0-d), the
+    per-lane E, L_z, Q and y0; horizon_eps and max_radius get none. The
+    march runs with the opaque stop. Scope as the Kerr-Schild one: opaque
+    thin discs (slot-0 shading)."""
+    if not discs:
+        raise ValueError("the differentiable march needs at least one disc")
+    cfg = SweepConfig(
+        float(h0), int(max_steps), tuple(discs), 0.0, float(h_min_frac), float(r_ref_scale),
+        int(k_ckpt),
+    )
+
+    def march(radius, a, horizon_eps, max_radius, e, l_z, q, y0):
+        return _BLMarchDiff.apply(radius, a, e, l_z, q, y0, horizon_eps, max_radius, cfg)
 
     return march

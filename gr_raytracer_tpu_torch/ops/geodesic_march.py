@@ -1,21 +1,26 @@
-"""Fixed-step RK4 Kerr-Schild geodesic march with in-loop disc events
-(counterpart of gr_raytracer_tpu/ops/geodesic_pallas.py::kerr_rk4_march).
+"""Fixed-step RK4 geodesic marches with in-loop disc events (counterpart of
+gr_raytracer_tpu/ops/geodesic_pallas.py::kerr_rk4_march and
+::kerr_bl_rk4_march).
 
-`kerr_rk4_march` is the entry point. For tensors on the card it launches
-the hand-written CUDA kernel csrc/kerr_rk4_march.cu; for tensors on the CPU
-it runs `march_plain`, the same march in plain torch, vectorized over lanes
-with masks. The two share the arithmetic line for line: see the kernel's
-header for its design and what bounds it.
+`kerr_rk4_march` marches Kerr-Schild states (position | covariant
+momentum); `kerr_bl_rk4_march` marches Boyer-Lindquist states in Mino time
+with per-ray conserved (E, L_z, Q). For tensors on the card each launches
+its hand-written CUDA kernel (csrc/kerr_rk4_march.cu, csrc/kerr_bl_march.cu);
+for tensors on the CPU it runs its plain torch version (`march_plain`,
+`march_bl_plain`), vectorized over lanes with masks. A kernel and its plain
+version share the arithmetic line for line: see the kernels' headers for
+their design and what bounds them.
 
-Step size: h = h0 · clip((r − r₊)/r_ref, h_min_frac, 1), with the far-field
-lever (half-gap steps for outward lanes beyond r_safe). Events: equatorial
-thin-disc crossings into a K-slot per-lane buffer of 12-wide payloads
-(point3 | p_contra4 | uv2 | seg_dir3).
+Kerr-Schild step size: h = h0 · clip((r − r₊)/r_ref, h_min_frac, 1), with
+the far-field lever (half-gap steps for outward lanes beyond r_safe).
+Events: equatorial thin-disc crossings into a K-slot per-lane buffer of
+12-wide payloads (point3 | p_contra4 | uv2 | seg_dir3).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -29,10 +34,13 @@ MAX_DISCS = 8  # kMaxDiscs in the CUDA source
 # finished lanes stop costing work.
 _COMPACT_EVERY = 32
 
-# Launches of the CUDA kernel (the plain version does not count).
+# Launches of the CUDA kernels K1 and K3 (the plain versions do not count).
 launches = 0
-# When set to a list, each kernel launch appends its (start, end) CUDA events.
+bl_launches = 0
+# When set to a list, each launch of K1 (K3) appends its (start, end) CUDA
+# events.
 launch_timer = None
+bl_launch_timer = None
 
 
 class DiscSpec(NamedTuple):
@@ -177,13 +185,13 @@ _COMPONENT_MAJOR = ("y", "comp")
 
 
 def _take(lanes, idx):
-    return _Lanes(
-        *(t[:, idx] if name in _COMPONENT_MAJOR else t[idx] for name, t in zip(_Lanes._fields, lanes))
+    return type(lanes)(
+        *(t[:, idx] if name in _COMPONENT_MAJOR else t[idx] for name, t in zip(lanes._fields, lanes))
     )
 
 
 def _put(lanes, idx, sub):
-    for name, t, s in zip(_Lanes._fields, lanes, sub):
+    for name, t, s in zip(lanes._fields, lanes, sub):
         if name in _COMPONENT_MAJOR:
             t[:, idx] = s
         else:
@@ -235,34 +243,15 @@ def _plain_step(c, lanes, discs):
     # scalar into multiplication by its reciprocal, which the kernel's true
     # division would not match.
     delta = (h / h.new_tensor(6.0)) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
-    if c["compensated"]:
-        # Kahan accumulation of y += delta.
-        adj = delta - comp
-        t_sum = y + adj
-        comp_new = (t_sum - y) - adj
-        y_new = torch.where(active[None, :], t_sum, y)
-        comp = torch.where(active[None, :], comp_new, comp)
-    else:
-        y_new = torch.where(active[None, :], y + delta, y)
+    y_new, comp = _update(c, active, y, delta, comp)
 
-    # Stop determination (priority by the order of the where-chain).
     pos_finite = torch.all(torch.isfinite(y_new[0:4]), dim=0)
     mom_finite = torch.all(torch.isfinite(y_new[4:8]), dim=0)
     r_new = _ks_radius(a, y_new[1], y_new[2], y_new[3])
-    horizon = r_new <= c["r_plus"] + c["horizon_eps"]
     rho_sq = y_new[1] ** 2 + y_new[2] ** 2 + y_new[3] ** 2
-    escaped = rho_sq > c["max_radius_sq"]
-    steps_new = steps + active.to(steps.dtype)
-    budget = steps_new >= c["budget_steps"] - 1
-    trapped = budget & (r_new < 5.0 * radius)
-    code = torch.full_like(stop, integ.RUNNING)
-    code = torch.where(~mom_finite, integ.NAN, code)
-    code = torch.where(escaped, integ.CELESTIAL, code)
-    code = torch.where(trapped, integ.TRAPPED, code)
-    code = torch.where(horizon, integ.HORIZON, code)
-    code = torch.where(~pos_finite, integ.NAN, code)
-    code = torch.where((code == integ.RUNNING) & budget, integ.BUDGET, code)
-    stop_new = torch.where(active, code, stop)
+    stop_new, steps_new = _stop_codes(
+        c, active, stop, steps, r_new, pos_finite, mom_finite, rho_sq
+    )
 
     if discs:
         z_prev, z_new = y[3], y_new[3]
@@ -313,40 +302,28 @@ def march_plain(
     dtype, device = y0.dtype, y0.device
     n = y0.shape[0]
     attempts = max_steps if attempts is None else int(attempts)
-    # Scalars are rounded to the march dtype, as the kernel's parameters are.
-    sc = lambda v: torch.tensor(float(v), dtype=dtype, device=device)
-    radius_t, a_t = sc(radius), sc(a)
-    m = 0.5 * radius_t
-    c = {
-        "radius": radius_t,
-        "a": a_t,
-        "h0": sc(h0),
-        "r_ref": sc(r_ref_scale),
-        "h_min_frac": float(sc(h_min_frac)),
-        "r_plus": m + torch.sqrt(torch.clamp(m * m - a_t * a_t, min=0.0)),
-        "horizon_eps": sc(horizon_epsilon),
-        "max_radius_sq": sc(max_radius) * sc(max_radius),
-        "r_safe": float(sc(r_safe)),
-        "budget_steps": int(max_steps),
-        "opaque_stop": bool(opaque_stop),
-        "compensated": bool(compensated),
-    }
-    discs = tuple(DiscSpec(float(sc(d.inner)), float(sc(d.outer)), int(d.kind)) for d in discs)
-    y = y0.T.contiguous()
+    c = _march_constants(radius, a, horizon_epsilon, h0, max_steps, max_radius, h_min_frac,
+                         r_ref_scale, opaque_stop, compensated, dtype, device)
+    c["r_safe"] = float(torch.tensor(float(r_safe), dtype=dtype))
+    discs = _rounded_discs(discs, dtype)
+    y = _lane_major_copy(y0)
     lanes = _Lanes(
-        y=y,
-        r=_ks_radius(a_t, y[1], y[2], y[3]),
-        stop=torch.zeros(n, dtype=torch.int32, device=device),
-        steps=torch.zeros(n, dtype=torch.int32, device=device),
-        ev_kind=torch.full((n, MAX_EVENTS), -1, dtype=torch.int32, device=device),
-        ev_data=torch.zeros((n, MAX_EVENTS, EVENT_WIDTH), dtype=dtype, device=device),
-        ev_count=torch.zeros(n, dtype=torch.int32, device=device),
-        ev_ovf=torch.zeros(n, dtype=torch.bool, device=device),
-        comp=torch.zeros_like(y),
+        y, _ks_radius(c["a"], y[1], y[2], y[3]), torch.zeros(n, dtype=torch.int32, device=device),
+        torch.zeros(n, dtype=torch.int32, device=device), *_event_buffers(n, dtype, device),
+        torch.zeros_like(y),
     )
+    return _march_lanes(lambda sub: _plain_step(c, sub, discs), lanes, attempts, finalize, ckpt_every)
+
+
+def _march_lanes(step, lanes, attempts, finalize, ckpt_every):
+    """Run `step` over the RUNNING lanes for up to `attempts` iterations,
+    re-gathering the lanes every _COMPACT_EVERY iterations; returns the
+    march's results (y [N, 8], stop, steps, ev_kind, ev_data, ev_count,
+    ev_overflow, and the checkpoints [S, 8, N] when ckpt_every > 0). The
+    checkpoint rows go by the global iteration count."""
     k_ckpt = int(ckpt_every)
     if k_ckpt:
-        ckpt = torch.zeros((-(-attempts // k_ckpt), 8, n), dtype=dtype, device=device)
+        ckpt = lanes.y.new_zeros((-(-attempts // k_ckpt),) + tuple(lanes.y.shape))
     it = 0
     while it < attempts:
         idx = torch.nonzero(lanes.stop == integ.RUNNING).flatten()
@@ -358,7 +335,7 @@ def march_plain(
                 # The pre-step state; a lane that stopped earlier in this
                 # sub-loop writes its frozen state into a row nothing reads.
                 ckpt[j // k_ckpt][:, idx] = sub.y
-            sub = _plain_step(c, sub, discs)
+            sub = step(sub)
         _put(lanes, idx, sub)
         it += _COMPACT_EVERY
     stop = lanes.stop
@@ -371,42 +348,292 @@ def march_plain(
     return out + (ckpt,) if k_ckpt else out
 
 
+def _lane_major_copy(y0):
+    """y0 [N, 8] as a fresh [8, N] tensor. The march updates its state in
+    place, and y0.T.contiguous() would alias y0 when N = 1."""
+    return y0.T.clone(memory_format=torch.contiguous_format)
+
+
+def _event_buffers(n, dtype, device):
+    """Fresh (ev_kind, ev_data, ev_count, ev_ovf) of a march."""
+    return (
+        torch.full((n, MAX_EVENTS), -1, dtype=torch.int32, device=device),
+        torch.zeros((n, MAX_EVENTS, EVENT_WIDTH), dtype=dtype, device=device),
+        torch.zeros(n, dtype=torch.int32, device=device),
+        torch.zeros(n, dtype=torch.bool, device=device),
+    )
+
+
+def _stop_codes(c, active, stop, steps, r_new, pos_finite, mom_finite, rho_sq):
+    """(stop_new, steps_new): the stop decision of one step, its priority
+    set by the order of the where-chain; shared by both marches."""
+    horizon = r_new <= c["r_plus"] + c["horizon_eps"]
+    escaped = rho_sq > c["max_radius_sq"]
+    steps_new = steps + active.to(steps.dtype)
+    budget = steps_new >= c["budget_steps"] - 1
+    trapped = budget & (r_new < 5.0 * c["radius"])
+    code = torch.full_like(stop, integ.RUNNING)
+    code = torch.where(~mom_finite, integ.NAN, code)
+    code = torch.where(escaped, integ.CELESTIAL, code)
+    code = torch.where(trapped, integ.TRAPPED, code)
+    code = torch.where(horizon, integ.HORIZON, code)
+    code = torch.where(~pos_finite, integ.NAN, code)
+    code = torch.where((code == integ.RUNNING) & budget, integ.BUDGET, code)
+    return torch.where(active, code, stop), steps_new
+
+
+def _update(c, active, y, delta, comp):
+    """(y_new, comp): y += delta on active lanes, Kahan-compensated when
+    c["compensated"]."""
+    if c["compensated"]:
+        adj = delta - comp
+        t_sum = y + adj
+        comp_new = (t_sum - y) - adj
+        return torch.where(active[None, :], t_sum, y), torch.where(active[None, :], comp_new, comp)
+    return torch.where(active[None, :], y + delta, y), comp
+
+
+def _rounded_discs(discs, dtype):
+    """Disc bounds rounded to the march dtype, as the kernel's are."""
+    rd = lambda v: float(torch.tensor(float(v), dtype=dtype))
+    return tuple(DiscSpec(rd(d.inner), rd(d.outer), int(d.kind)) for d in discs)
+
+
+def _march_constants(radius, a, horizon_epsilon, h0, max_steps, max_radius, h_min_frac,
+                     r_ref_scale, opaque_stop, compensated, dtype, device):
+    """The scalars of a march, rounded to the march dtype as the kernel's
+    parameters are."""
+    sc = lambda v: torch.tensor(float(v), dtype=dtype, device=device)
+    radius_t, a_t = sc(radius), sc(a)
+    m = 0.5 * radius_t
+    return {
+        "radius": radius_t,
+        "a": a_t,
+        "h0": sc(h0),
+        "r_ref": sc(r_ref_scale),
+        "h_min_frac": float(sc(h_min_frac)),
+        "r_plus": m + torch.sqrt(torch.clamp(m * m - a_t * a_t, min=0.0)),
+        "horizon_eps": sc(horizon_epsilon),
+        "max_radius_sq": sc(max_radius) * sc(max_radius),
+        "budget_steps": int(max_steps),
+        "opaque_stop": bool(opaque_stop),
+        "compensated": bool(compensated),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Boyer-Lindquist: the Carter-separated Mino-time march (K3's plain version).
+# States are [8, N] = (t, r, θ, φ, v_r, v_θ, 0, 0); E, L_z, Q are [N].
+# ---------------------------------------------------------------------------
+
+
+def _bl_rhs(r_s, a, e, l_z, q, y):
+    """Mino-time dy/dλ, [8, N]. The three reciprocals 1/Δ, 1/sin²θ and
+    1/sin³θ share one divide, 1/(Δ·sin²θ), as in the JAX kernel. At a pole
+    (sin θ = 0) the result is not finite: the march stops the lane NAN,
+    the documented classification."""
+    r, theta = y[1], y[2]
+    delta = r * r - r_s * r + a * a
+    p_r = (r * r + a * a) * e - a * l_z
+    st = torch.sin(theta)
+    ct = torch.cos(theta)
+    sin2 = st * st
+    inv_ds = 1.0 / (delta * sin2)
+    inv_delta = inv_ds * sin2
+    inv_sin2 = inv_ds * delta
+    dt = (r * r + a * a) * inv_delta * p_r + a * (l_z - a * e * sin2)
+    dphi = a * inv_delta * p_r + l_z * inv_sin2 - a * e
+    lae = l_z - a * e
+    carter_term = lae * lae + q
+    dv_r = 0.5 * (4.0 * r * e * p_r - (2.0 * r - r_s) * carter_term)
+    inv_st3 = st * inv_sin2 * inv_sin2
+    dv_theta = 0.5 * (-2.0 * a * a * e * e * ct * st + 2.0 * l_z * l_z * ct * inv_st3)
+    zero = torch.zeros_like(dt)
+    return torch.stack([dt, y[4], y[5], dphi, dv_r, dv_theta, zero, zero])
+
+
+def _bl_momentum(r_s, a, e, l_z, y):
+    """p^μ = (1/Σ)(dt/dλ, v_r, v_θ, dφ/dλ), [4, N]. Unlike _bl_rhs, each
+    reciprocal is its own divide (as in the JAX kernel)."""
+    r, theta = y[1], y[2]
+    ct = torch.cos(theta)
+    sig = r * r + a * a * (ct * ct)
+    delta = r * r - r_s * r + a * a
+    p_r = (r * r + a * a) * e - a * l_z
+    st = torch.sin(theta)
+    sin2 = st * st
+    dt = (r * r + a * a) / delta * p_r + a * (l_z - a * e * sin2)
+    dphi = a / delta * p_r + l_z / sin2 - a * e
+    return torch.stack([dt, y[4], y[5], dphi]) / sig[None]
+
+
+def _bl_embed3(a, y):
+    """The Kerr-Schild Cartesian embedding of a BL state's position, [3, N]."""
+    sp, cp = torch.sin(y[3]), torch.cos(y[3])
+    st, ct = torch.sin(y[2]), torch.cos(y[2])
+    return torch.stack([(y[1] * cp - a * sp) * st, (y[1] * sp + a * cp) * st, y[1] * ct])
+
+
+def _bl_step_size(c, inv_e, r_here, r_plus):
+    """h = h0/|E| / (1 + (r/r_ref)²) · clip((r − r₊)/r_ref, h_min_frac, 1):
+    dr/dλ ~ E r² far out, so the far-field spatial step is ~h0·r_ref², and
+    near the hole the step shrinks with the distance above the horizon."""
+    u = r_here / c["r_ref"]
+    gap = torch.clamp((r_here - r_plus) / c["r_ref"], c["h_min_frac"], 1.0)
+    return c["h0"] * inv_e / (1.0 + u * u) * gap
+
+
+def _bl_rk4_delta(c, e, l_z, q, inv_e, r_plus, y):
+    """y_new − y of one Mino-time RK4 step (no far-field lever: huge Mino
+    steps wreck the t and φ quadratures, whose integrands grow with r)."""
+    radius, a = c["radius"], c["a"]
+    h = _bl_step_size(c, inv_e, y[1], r_plus)
+    k1 = _bl_rhs(radius, a, e, l_z, q, y)
+    k2 = _bl_rhs(radius, a, e, l_z, q, y + 0.5 * h * k1)
+    k3 = _bl_rhs(radius, a, e, l_z, q, y + 0.5 * h * k2)
+    k4 = _bl_rhs(radius, a, e, l_z, q, y + h * k3)
+    return (h / h.new_tensor(6.0)) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+
+class _BLLanes(NamedTuple):
+    """The BL march's per-lane state: _Lanes without the carried radius,
+    with the conserved scalars and 1/max(|E|, 1e-12)."""
+
+    y: torch.Tensor  # [8, N]
+    stop: torch.Tensor
+    steps: torch.Tensor
+    ev_kind: torch.Tensor
+    ev_data: torch.Tensor
+    ev_count: torch.Tensor
+    ev_ovf: torch.Tensor
+    comp: torch.Tensor  # [8, N] Kahan compensation
+    e: torch.Tensor
+    l_z: torch.Tensor
+    q: torch.Tensor
+    inv_e: torch.Tensor
+
+
+def _bl_plain_step(c, lanes, discs):
+    """One BL march iteration over `lanes`; stopped lanes stay frozen."""
+    y, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, comp, e, l_z, q, inv_e = lanes
+    radius, a = c["radius"], c["a"]
+    active = stop == integ.RUNNING
+    delta = _bl_rk4_delta(c, e, l_z, q, inv_e, c["r_plus"], y)
+    y_new, comp = _update(c, active, y, delta, comp)
+
+    pos_finite = torch.all(torch.isfinite(y_new[0:4]), dim=0)
+    mom_finite = torch.all(torch.isfinite(y_new[4:6]), dim=0)
+    r_new = y_new[1]
+    stop_new, steps_new = _stop_codes(
+        c, active, stop, steps, r_new, pos_finite, mom_finite, r_new * r_new
+    )
+
+    if discs:
+        # The equatorial crossing in BL: θ through π/2.
+        d_prev = y[2] - c["half_pi"]
+        d_new = y_new[2] - c["half_pi"]
+        crossing = (d_prev * d_new < 0.0) & active
+        if bool(crossing.any()):
+            p_prev = _bl_momentum(radius, a, e, l_z, y)
+            p_new = _bl_momentum(radius, a, e, l_z, y_new)
+            frac = d_prev / (d_prev - d_new + (d_prev == d_new).to(y.dtype))
+            r_c = y[1] + frac * (y_new[1] - y[1])
+            phi_c = y[3] + frac * (y_new[3] - y[3])
+            sp = torch.sin(phi_c)
+            cp = torch.cos(phi_c)
+            px = r_c * cp - a * sp  # the KS embedding at θ = π/2
+            py = r_c * sp + a * cp
+            p_interp = p_prev + frac[None] * (p_new - p_prev)
+            seg = _bl_embed3(a, y_new) - _bl_embed3(a, y)
+            ev_count, ev_ovf = _store_disc_events(
+                discs, crossing, px, py, p_interp, seg, ev_kind, ev_data, ev_count, ev_ovf
+            )
+        if c["opaque_stop"]:
+            stop_new = torch.where(
+                (stop_new == integ.RUNNING) & (ev_count > 0), integ.SATURATED, stop_new
+            )
+    return _BLLanes(y_new, stop_new, steps_new, ev_kind, ev_data, ev_count, ev_ovf, comp,
+                    e, l_z, q, inv_e)
+
+
+def _check_bl_args(y0, e, l_z, q, discs, spheres, vols, resume, ckpt_every):
+    _check_args(y0, discs, spheres, vols, resume, ckpt_every)
+    n = y0.shape[0]
+    for name, v in (("e", e), ("l_z", l_z), ("q", q)):
+        if v.shape != (n,) or v.dtype != y0.dtype or v.device != y0.device:
+            raise ValueError(f"{name} must be [N] of y0's dtype and device, got {tuple(v.shape)} {v.dtype}")
+
+
+def march_bl_plain(
+    radius, a, horizon_epsilon, y0, e, l_z, q, h0, max_steps, max_radius, discs=(), spheres=(),
+    vols=(), h_min_frac=0.02, r_ref_scale=10.0, opaque_stop=False, attempts=None, resume=None,
+    finalize=True, compensated=False, ckpt_every=0,
+):
+    """The BL march in plain torch on y0's device; same arguments and
+    results as `kerr_bl_rk4_march`."""
+    _check_bl_args(y0, e, l_z, q, discs, spheres, vols, resume, ckpt_every)
+    dtype, device = y0.dtype, y0.device
+    n = y0.shape[0]
+    attempts = max_steps if attempts is None else int(attempts)
+    c = _march_constants(radius, a, horizon_epsilon, h0, max_steps, max_radius, h_min_frac,
+                         r_ref_scale, opaque_stop, compensated, dtype, device)
+    c["half_pi"] = torch.tensor(math.pi / 2, dtype=dtype, device=device)
+    discs = _rounded_discs(discs, dtype)
+    y = _lane_major_copy(y0)
+    # Copies: the march writes the lanes' fields back in place.
+    e, l_z, q = (v.detach().clone() for v in (e, l_z, q))
+    lanes = _BLLanes(
+        y, torch.zeros(n, dtype=torch.int32, device=device),
+        torch.zeros(n, dtype=torch.int32, device=device), *_event_buffers(n, dtype, device),
+        torch.zeros_like(y), e, l_z, q, 1.0 / torch.clamp(torch.abs(e), min=1e-12),
+    )
+    return _march_lanes(lambda sub: _bl_plain_step(c, sub, discs), lanes, attempts, finalize, ckpt_every)
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel
 # ---------------------------------------------------------------------------
 
-_SOURCE = "kerr_rk4_march.cu"
+# The two kernels: K1 (Kerr-Schild) and K3 (Boyer-Lindquist). Entry points
+# take (y0[, e, l_z, q], n, outputs..., ckpt, params, discs, n_discs, ints,
+# stream) and return the CUDA error code of the launch.
+_KERNELS = {
+    False: ("kerr_rk4_march", "kerr_rk4_march.cu"),
+    True: ("kerr_bl_rk4_march", "kerr_bl_march.cu"),
+}
 _bound: dict = {}
 
 
-def _entry(dtype):
-    """The kernel's C entry point for `dtype`, built on first use."""
-    fn = _bound.get(dtype)
+def _entry(bl, dtype):
+    """A kernel's C entry point for `dtype`, built on first use."""
+    fn = _bound.get((bl, dtype))
     if fn is None:
         from gr_raytracer_tpu_torch.ops import cuda_build
 
-        lib = cuda_build.load(_SOURCE)
-        fn = lib.kerr_rk4_march_f32 if dtype == torch.float32 else lib.kerr_rk4_march_f64
+        stem, source = _KERNELS[bl]
+        lib = cuda_build.load(source)
+        fn = getattr(lib, f"{stem}_f32" if dtype == torch.float32 else f"{stem}_f64")
         p = ctypes.c_void_p
-        fn.argtypes = [
-            p, ctypes.c_int64, p, p, p, p, p, p, p, p,
+        fn.argtypes = [p] * (4 if bl else 1) + [
+            ctypes.c_int64, p, p, p, p, p, p, p, p,
             ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double), ctypes.c_int,
             ctypes.POINTER(ctypes.c_int), p,
         ]
         fn.restype = ctypes.c_int
-        _bound[dtype] = fn
+        _bound[(bl, dtype)] = fn
     return fn
 
 
-def _march_cuda(
-    radius, a, horizon_epsilon, y0, h0, max_steps, max_radius, discs, h_min_frac,
-    r_ref_scale, r_safe, opaque_stop, attempts, finalize, compensated, ckpt_every,
-):
-    global launches
-    if not y0.is_contiguous():
-        raise ValueError("y0 must be contiguous")
+def _march_cuda(y0, consts, params, discs, max_steps, opaque_stop, attempts, finalize,
+                compensated, ckpt_every):
+    """Allocate the outputs and launch K1 (consts empty) or K3 (consts =
+    (e, l_z, q)); params are the kernel's float parameters in its order."""
+    global launches, bl_launches
+    bl = bool(consts)
     n = y0.shape[0]
     dev, dtype = y0.device, y0.dtype
+    if not all(v.is_contiguous() for v in (y0, *consts)):
+        raise ValueError("the march takes contiguous y0, e, l_z, q")
     y_out = torch.empty_like(y0)
     stop = torch.empty(n, dtype=torch.int32, device=dev)
     steps = torch.empty(n, dtype=torch.int32, device=dev)
@@ -416,10 +643,7 @@ def _march_cuda(
     ev_ovf = torch.empty(n, dtype=torch.bool, device=dev)
     # Rows a lane never reaches stay unwritten (undefined), as on the TPU.
     ckpt = torch.empty((-(-attempts // ckpt_every), 8, n), dtype=dtype, device=dev) if ckpt_every else None
-    params = (ctypes.c_double * 8)(
-        float(radius), float(a), float(horizon_epsilon), float(h0), float(max_radius),
-        float(h_min_frac), float(r_ref_scale), float(r_safe),
-    )
+    params = (ctypes.c_double * len(params))(*[float(v) for v in params])
     disc_rows = (ctypes.c_double * (3 * MAX_DISCS))(
         *[float(v) for d in discs for v in (d.inner, d.outer, d.kind)]
     )
@@ -427,25 +651,28 @@ def _march_cuda(
         int(attempts), int(max_steps), int(bool(opaque_stop)), int(bool(finalize)),
         int(bool(compensated)), int(ckpt_every),
     )
-    fn = _entry(dtype)
+    fn = _entry(bl, dtype)
+    timer = bl_launch_timer if bl else launch_timer
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
-        timed = launch_timer is not None
-        if timed:
+        if timer is not None:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record(stream)
         err = fn(
-            y0.data_ptr(), n, y_out.data_ptr(), stop.data_ptr(), steps.data_ptr(),
-            ev_kind.data_ptr(), ev_data.data_ptr(), ev_count.data_ptr(), ev_ovf.data_ptr(),
-            None if ckpt is None else ckpt.data_ptr(), params, disc_rows, len(discs), ints,
-            stream.cuda_stream,
+            y0.data_ptr(), *(v.data_ptr() for v in consts), n, y_out.data_ptr(), stop.data_ptr(),
+            steps.data_ptr(), ev_kind.data_ptr(), ev_data.data_ptr(), ev_count.data_ptr(),
+            ev_ovf.data_ptr(), None if ckpt is None else ckpt.data_ptr(), params, disc_rows,
+            len(discs), ints, stream.cuda_stream,
         )
         if err != 0:
-            raise RuntimeError(f"kerr_rk4_march kernel launch failed: CUDA error {err}")
-        launches += 1
-        if timed:
+            raise RuntimeError(f"{_KERNELS[bl][0]} kernel launch failed: CUDA error {err}")
+        if bl:
+            bl_launches += 1
+        else:
+            launches += 1
+        if timer is not None:
             end.record(stream)
-            launch_timer.append((start, end))
+            timer.append((start, end))
     out = (y_out, stop, steps, ev_kind, ev_data, ev_count, ev_ovf)
     return out + (ckpt,) if ckpt_every else out
 
@@ -481,7 +708,34 @@ def kerr_rk4_march(
     if y0.device.type != "cuda":
         raise ValueError(f"unsupported device {y0.device}")
     attempts = max_steps if attempts is None else int(attempts)
-    return _march_cuda(
-        radius, a, horizon_epsilon, y0, h0, max_steps, max_radius, tuple(discs), h_min_frac,
-        r_ref_scale, r_safe, opaque_stop, attempts, finalize, compensated, int(ckpt_every),
-    )
+    params = (radius, a, horizon_epsilon, h0, max_radius, h_min_frac, r_ref_scale, r_safe)
+    return _march_cuda(y0, (), params, tuple(discs), max_steps, opaque_stop, attempts, finalize,
+                       compensated, int(ckpt_every))
+
+
+def kerr_bl_rk4_march(
+    radius, a, horizon_epsilon, y0, e, l_z, q, h0, max_steps, max_radius, discs=(), spheres=(),
+    vols=(), h_min_frac=0.02, r_ref_scale=10.0, opaque_stop=False, attempts=None, resume=None,
+    finalize=True, compensated=False, ckpt_every=0,
+):
+    """The Carter-separated Mino-time march of N rays from y0 [N, 8] =
+    (t, r, θ, φ, v_r, v_θ, 0, 0) with their conserved E, L_z, Q [N].
+
+    Same options and results as `kerr_rk4_march`, without the far-field
+    lever. Disc events record the Kerr-Schild embedding of the crossing
+    point, the interpolated BL contravariant momentum and the embedded
+    segment. A CUDA tensor goes through the kernel csrc/kerr_bl_march.cu,
+    a CPU tensor through `march_bl_plain`."""
+    _check_bl_args(y0, e, l_z, q, discs, spheres, vols, resume, ckpt_every)
+    if y0.device.type == "cpu":
+        return march_bl_plain(
+            radius, a, horizon_epsilon, y0, e, l_z, q, h0, max_steps, max_radius, discs=discs,
+            h_min_frac=h_min_frac, r_ref_scale=r_ref_scale, opaque_stop=opaque_stop,
+            attempts=attempts, finalize=finalize, compensated=compensated, ckpt_every=ckpt_every,
+        )
+    if y0.device.type != "cuda":
+        raise ValueError(f"unsupported device {y0.device}")
+    attempts = max_steps if attempts is None else int(attempts)
+    params = (radius, a, horizon_epsilon, h0, max_radius, h_min_frac, r_ref_scale)
+    return _march_cuda(y0, (e, l_z, q), params, tuple(discs), max_steps, opaque_stop, attempts,
+                       finalize, compensated, int(ckpt_every))

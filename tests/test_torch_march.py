@@ -102,6 +102,36 @@ def test_wrapper_rejects_unported_options():
         gm.kerr_rk4_march(1.0, 0.45, 1e-3, torch.zeros((4, 7), dtype=torch.float64), 1.0, 10, 40.0)
 
 
+def test_nan_lane_of_the_kerr_toml_frame():
+    """Pixel (581, 623) of the 1000² kerr.toml frame (the README camera,
+    budget 20,000) stops NAN at step 40 in float32, on the card and on the
+    CPU. Its 40th step ends near the horizon, where an RK4 stage lands in
+    the equatorial plane inside the ring (ρ < a), the Kerr-Schild r
+    underflows and the right-hand side is not finite. The JAX kernel, given
+    the port's state after 39 steps, stops NAN at the same step; from y0
+    it wanders by a few float32 ulps in 39 steps (XLA and torch round
+    differently) and steps over the ring. In float64 both stop HORIZON at
+    step 40, which renders as the same black pixel as NAN. The march also
+    leaves a one-lane y0 untouched."""
+    y0 = [0.0, -10.0, 0.0, -0.5, 0.9486839175224304, 1.133610486984253, -0.21163426339626312,
+          -0.0735451951622963]
+    y39 = [float.fromhex(h) for h in (
+        "-0x1.a82b1ep+4", "0x1.d9fa14p-2", "0x1.4fd9e0p-1", "0x1.8d2680p-12", "0x1.e5b9e6p-1",
+        "-0x1.c25c6ap+6", "-0x1.d92a20p+6", "-0x1.a4cc00p-4",
+    )]
+    args = (1.0, 0.499, 1e-4)
+    kw = dict(h0=1.0, max_steps=20000, max_radius=15000.0, r_safe=30.0, opaque_stop=True)
+    disc = (0.795, 15.0, 0)
+    for start, dtype, attempts, want in ((y0, np.float64, None, (1, 40)), (y39, np.float32, 1, (3, 1))):
+        lanes = np.repeat(np.asarray([start], dtype), gp.LANE_TILE, axis=0)
+        ref = gp.kerr_rk4_march(*args, jnp.asarray(lanes), discs=(gp.DiscSpec(*disc),), interpret=True,
+                                attempts=attempts, **kw)
+        y_in = t(lanes[:1])
+        got = gm.kerr_rk4_march(*args, y_in, discs=(gm.DiscSpec(*disc),), attempts=attempts, **kw)
+        np.testing.assert_array_equal(y_in.numpy(), lanes[:1])
+        assert (int(ref[1][0]), int(ref[2][0])) == want == (int(got[1][0]), int(got[2][0]))
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_march(flagship):
     """Runs only on a machine with a card (chip_smoke.py does the same at

@@ -20,8 +20,32 @@ from gr_raytracer_tpu_torch.rendering import camera as tcam
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERR_TOML = os.path.join(REPO, "scene-definitions", "kerr.toml")
+KERR_BL_TOML = os.path.join(REPO, "scene-definitions", "kerr-bl.toml")
 # The README's kerr.toml render command: camera pose and orientation.
 KERR_CAMERA = dict(camera_position=(-10.0, 0.0, -0.5), theta=1.52, psi=-1.57)
+# docs/examples.md's KerrBL and Schwarzschild commands: the tetrad's z is
+# radial, so the camera turns by π to face the hole.
+BL_CAMERA = dict(camera_position=(-10.0, 0.0, -0.5), theta=-3.14159)
+# The disc-only Schwarzschild scene of tests/test_golden_frames.py.
+SCHWARZSCHILD_DISC_TOML = """
+celestial_temperature = 0.0
+[celestial_texture.Checker]
+beaming_exponent = 0.0
+width = 18.0
+height = 9.0
+color1 = [30, 30, 90]
+color2 = [4, 4, 12]
+[geometry_type.Schwarzschild]
+radius = 1.0
+horizon_epsilon = 1e-4
+[[objects]]
+[objects.Disc]
+inner_radius = 3.0
+outer_radius = 6.0
+temperature = 4000.0
+[objects.Disc.texture.BlackBody]
+beaming_exponent = 3.0
+"""
 CPU = torch.device("cpu")
 F64 = torch.float64
 # The port tests run small tensors: one intra-op thread each keeps parallel
