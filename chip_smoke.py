@@ -32,7 +32,8 @@ non-zero on failure:
      Mino budget of 40,000 (nominal 20,000): float32 without Kahan (the
      main path's configuration) over the whole budget, float32 with Kahan
      and float64 with and without over their first 4,000 steps (the plain
-     march costs ~4.5 ms an iteration whatever the lane count); then K3
+     march costs ~4.5 ms an iteration whatever the lane count; each
+     kernel is timed over the whole budget); then K3
      with checkpoints (every 128 steps) on the 16,384 rays of the BL fit
      frame, float32 (whole budget) and float64 (first 4,000 steps);
   9. the BL main path: the CLI `render` of kerr-bl.toml at 1000×1000
@@ -47,9 +48,25 @@ non-zero on failure:
      10,000, float32, target a = 0.45, start 0.30, Adam 3e-2); K3 and K4
      must launch, every gradient must be finite, the loss must fall and a
      must move toward 0.45;
- 13. one JSON line {"kernels": [...]} with each kernel's launches, error
+ 13. K1 and K3 with volume-bound events against their plain versions: K1
+     on the middle 65,536-ray chunk of the 500² kerr-volumetric-streaky
+     frame at budget 20,000, K3 on the 256² kerr-bl-volumetric-streaky
+     frame over its first 4,000 steps, float32 and float64;
+ 14. the raymarch K5 against its plain version on the volumetric lanes of
+     that K1 chunk, float32 and float64, with the march budget cut to
+     VOL_COMPARE_STEPS samples (the plain loop costs milliseconds per
+     sample whatever the lane count); then K5 alone at the scene's full
+     50,000-sample budget;
+ 15. the volumetric main path: the CLI `render` of kerr-volumetric-streaky
+     at 500×500 (docs/examples.md), float32, 4×4 AA; K1 and K5 must
+     launch, the frame must show horizon and sky and K5 lanes that emit;
+     it prints the rays re-traced because they overflowed their 8 event
+     slots, and, as a fault, those that overflowed the re-trace's 32 too;
+ 16. the BL volumetric path: the CLI `render` of
+     kerr-bl-volumetric-streaky at 256×256 through K3 and K5;
+ 17. one JSON line {"kernels": [...]} with each kernel's launches, error
      against its plain version, times and bound;
- 14. the last line: {"ok": true, "device": {...}}.
+ 18. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -119,8 +136,19 @@ BL_FIT_CAMERA = dict(camera_position=(-10.0, 0.0, -0.5), theta=1.52, psi=-1.57)
 # Iterations of the K3-against-plain comparisons that do not run the whole
 # budget (see phase 8).
 BL_COMPARE_ATTEMPTS = 4000
+# The volumetric paths: docs/examples.md's volumetric command (kerr-volumetric-
+# streaky at 500²) and its BL variant at 256².
+VOL_TOML = os.path.join(HERE, "scene-definitions", "kerr-volumetric-streaky.toml")
+BL_VOL_TOML = os.path.join(HERE, "scene-definitions", "kerr-bl-volumetric-streaky.toml")
+VOL_FRAME = 500
+BL_VOL_FRAME = 256
+VOL_CAMERA_KW = dict(camera_position=(-10.0, 0.0, -0.5), theta=1.52, psi=-1.57)
+# The K5 comparison's march budget (samples): the plain loop costs a few
+# milliseconds per sample, so this keeps each plain run near half a minute.
+VOL_COMPARE_STEPS = 2000
 FP32_LANES_PER_SM = 128  # Hopper: FP32 units per SM
 FP64_LANES_PER_SM = 64
+INT32_LANES_PER_SM = 64  # Hopper: INT32 units per SM
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 
 
@@ -141,12 +169,16 @@ def nvidia_smi(query):
     return out.stdout.strip().splitlines()[0]
 
 
-def count_flops(fn):
-    """Arithmetic operations that `fn` runs on one lane: every elementwise
-    arithmetic op (add, sub, mul, div, reciprocal, neg, sqrt, rsqrt, pow,
-    min/max, clamp, abs, and sin, cos, atan2 as one operation each) that
-    torch executes, counted by a dispatch mode. Compares, selects and copies
-    are not counted."""
+def count_ops(fn):
+    """Elementwise operations that `fn` runs on one lane, by class, counted
+    by a dispatch mode over what torch executes: "float" (add, sub, mul,
+    div, reciprocal, neg, sqrt, rsqrt, pow, min/max, clamp, abs, and sin,
+    cos, atan2 as one operation each, on floating tensors), "exp_log" (exp,
+    log), "floor" (floor, ceil) and "int" (add, sub, mul, remainder, xor,
+    and, or, shifts on integer tensors). Compares, selects, casts and copies
+    are not counted. A `& 0xFFFFFFFF` is not counted either: the plain
+    noise carries its uint32 hash in int64 and masks it to 32 bits after
+    each multiply and add, which native uint32 arithmetic does not need."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -154,19 +186,30 @@ def count_flops(fn):
         "add", "sub", "mul", "div", "reciprocal", "neg", "sqrt", "rsqrt", "pow", "minimum",
         "maximum", "clamp", "clamp_min", "abs", "rsub", "sin", "cos", "atan2",
     }
+    integer = {"add", "sub", "mul", "remainder", "bitwise_xor", "bitwise_and", "bitwise_or",
+               "__rshift", "__lshift", "bitwise_right_shift", "bitwise_left_shift"}
+    counts = {"float": 0, "exp_log": 0, "floor": 0, "int": 0}
 
     class Counter(TorchDispatchMode):
-        flops = 0
-
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
-            if func.overloadpacket.__name__.rstrip("_") in arith and isinstance(out, torch.Tensor):
-                Counter.flops += out.numel()
+            name = func.overloadpacket.__name__.rstrip("_")
+            if isinstance(out, torch.Tensor):
+                if not out.is_floating_point():
+                    u32_mask = name == "bitwise_and" and any(type(v) is int and v == 0xFFFFFFFF for v in args[1:])
+                    if name in integer and out.dtype != torch.bool and not u32_mask:
+                        counts["int"] += out.numel()
+                elif name in arith:
+                    counts["float"] += out.numel()
+                elif name in ("exp", "log"):
+                    counts["exp_log"] += out.numel()
+                elif name in ("floor", "ceil"):
+                    counts["floor"] += out.numel()
             return out
 
     with Counter():
         fn()
-    return Counter.flops
+    return counts
 
 
 def _one_lane():
@@ -177,8 +220,8 @@ def _one_lane():
 
 def count_step_flops():
     """Arithmetic operations of one RK4 step of the march, per ray, counted
-    on the plain step (count_flops); event stores are rare and not
-    counted."""
+    on the plain step (count_ops's "float" class); event stores are rare
+    and not counted."""
     import torch
 
     from gr_raytracer_tpu_torch.ops import geodesic_march as gm
@@ -198,7 +241,7 @@ def count_step_flops():
         ev_data=torch.zeros((1, 8, 12), dtype=torch.float64), ev_count=torch.zeros(1, dtype=torch.int32),
         ev_ovf=torch.zeros(1, dtype=torch.bool), comp=torch.zeros_like(y),
     )
-    return count_flops(lambda: gm._plain_step(c, lanes, ()))
+    return count_ops(lambda: gm._plain_step(c, lanes, ()))["float"]
 
 
 def count_vjp_flops():
@@ -223,7 +266,7 @@ def count_vjp_flops():
         )
         torch.autograd.grad((y_new, payload), (r, a, y), (torch.ones_like(y_new), torch.ones_like(payload)))
 
-    return count_flops(vjp)
+    return count_ops(vjp)["float"]
 
 
 def card_peak_flops(dtype):
@@ -249,9 +292,10 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
-def march_inputs(dtype, device="cuda"):
+def chunk_inputs(dtype, toml=KERR_TOML, size=FRAME, camera=None):
     """(scene, spec, y0, freq, solver, inverse) for the middle CLI chunk of
-    the 1000×1000 kerr.toml frame, cost-sorted as the main path sorts it."""
+    the size×size frame of `toml` (default: kerr.toml at 1000², the README
+    camera), cost-sorted as the main path sorts it."""
     import numpy as np
     import torch
 
@@ -259,15 +303,14 @@ def march_inputs(dtype, device="cuda"):
     from gr_raytracer_tpu_torch.rendering import camera as cam
     from gr_raytracer_tpu_torch.rendering import fast_path
 
-    opts = config.RenderOptions(
-        width=FRAME, height=FRAME, max_steps=MAX_STEPS,
-        camera_position=(-10.0, 0.0, -0.5), theta=1.52, psi=-1.57,
-    )
-    scene = config.create_scene(config.load_config(KERR_TOML), opts, dtype, torch.device(device))
-    first = FRAME * FRAME // 2 - N_RAYS // 2
-    flat = np.arange(first, first + N_RAYS)
-    rows = torch.as_tensor(flat // FRAME, dtype=dtype, device=device)
-    cols = torch.as_tensor(flat % FRAME, dtype=dtype, device=device)
+    camera = camera or dict(camera_position=(-10.0, 0.0, -0.5), theta=1.52, psi=-1.57)
+    opts = config.RenderOptions(width=size, height=size, max_steps=MAX_STEPS, **camera)
+    scene = config.create_scene(config.load_config(toml), opts, dtype, torch.device("cuda"))
+    n = min(N_RAYS, size * size)
+    first = size * size // 2 - n // 2
+    flat = np.arange(first, first + n)
+    rows = torch.as_tensor(flat // size, dtype=dtype, device="cuda")
+    cols = torch.as_tensor(flat % size, dtype=dtype, device="cuda")
     x, p = cam.pixel_rays(scene.camera, rows, cols)
     spec = fast_path.scene_kernel_spec(scene)
     solver, y0, freq, inverse = fast_path._prepare_march(scene, x, p)
@@ -284,59 +327,40 @@ def lane_relative_error(ref, got):
     return float(err.max()) if err.numel() else 0.0
 
 
-def bl_march_inputs(dtype, device="cuda"):
-    """(scene, spec, y0, freq, solver, inverse) for the middle CLI chunk of
-    the 1000×1000 kerr-bl.toml frame, cost-sorted as the main path sorts it."""
-    import numpy as np
-    import torch
-
-    from gr_raytracer_tpu_torch import config
-    from gr_raytracer_tpu_torch.rendering import camera as cam
-    from gr_raytracer_tpu_torch.rendering import fast_path
-
-    opts = config.RenderOptions(width=FRAME, height=FRAME, max_steps=MAX_STEPS, **BL_CAMERA_KW)
-    scene = config.create_scene(config.load_config(KERR_BL_TOML), opts, dtype, torch.device(device))
-    first = FRAME * FRAME // 2 - N_RAYS // 2
-    flat = np.arange(first, first + N_RAYS)
-    rows = torch.as_tensor(flat // FRAME, dtype=dtype, device=device)
-    cols = torch.as_tensor(flat % FRAME, dtype=dtype, device=device)
-    x, p = cam.pixel_rays(scene.camera, rows, cols)
-    spec = fast_path.scene_kernel_spec(scene)
-    solver, y0, freq, inverse = fast_path._prepare_march(scene, x, p)
-    return scene, spec, y0.contiguous(), freq, solver, inverse
-
-
-def compare_march(dtype, compensated, flops_per_step, bl=False, attempts=None):
+def compare_march(dtype, compensated, flops_per_step, bl=False, attempts=None, toml=None, size=FRAME,
+                  camera=None):
     """K1 (K3 with `bl`) against its plain version on the same inputs, the
-    main path's middle chunk at its budget; `attempts` bounds the
-    iterations of both (unfinished lanes stay RUNNING). Returns a result
-    dict."""
+    main path's middle chunk of `toml` (kerr.toml, kerr-bl.toml) at its
+    budget. The kernel is timed over the whole budget; `attempts` bounds
+    the iterations of the comparison (unfinished lanes stay RUNNING).
+    Returns a result dict."""
     import torch
 
     from gr_raytracer_tpu_torch.ops import geodesic_march as gm
-    from gr_raytracer_tpu_torch.rendering import fast_path
     from gr_raytracer_tpu_torch.rendering.integrator import IntegrationResult
 
+    toml = toml or (KERR_BL_TOML if bl else KERR_TOML)
+    scene, spec, y0, freq, solver, inverse = chunk_inputs(
+        dtype, toml, size, camera or (BL_CAMERA_KW if bl else None))
     if bl:
-        scene, spec, y0, freq, solver, inverse = bl_march_inputs(dtype)
         consts = (solver.e.contiguous(), solver.l_z.contiguous(), solver.q.contiguous())
         args = (spec.radius, spec.a, spec.horizon_epsilon, y0, *consts)
         kw = dict(h0=0.01, max_steps=2 * MAX_STEPS, max_radius=scene.integration.max_radius,
-                  discs=spec.discs, opaque_stop=spec.opaque, compensated=compensated)
-        if attempts is not None:
-            kw.update(attempts=attempts, finalize=False)
+                  discs=spec.discs, vols=spec.vols, opaque_stop=spec.opaque, compensated=compensated)
         kernel, plain = gm.kerr_bl_rk4_march, gm.march_bl_plain
     else:
-        scene, spec, y0, freq, solver, inverse = march_inputs(dtype)
         consts = ()
         args = (spec.radius, spec.a, spec.horizon_epsilon, y0)
         kw = dict(h0=1.0, max_steps=MAX_STEPS, max_radius=scene.integration.max_radius,
-                  discs=spec.discs, r_safe=spec.r_safe, opaque_stop=spec.opaque,
+                  discs=spec.discs, vols=spec.vols, r_safe=spec.r_safe, opaque_stop=spec.opaque,
                   compensated=compensated)
         kernel, plain = gm.kerr_rk4_march, gm.march_plain
-    got = kernel(*args, **kw)  # first launch: checks the kernel runs
+    full = kernel(*args, **kw)  # first launch: checks the kernel runs
     torch.cuda.synchronize()
-    kernel_ms, got = time_cuda(lambda: kernel(*args, **kw), reps=3)
+    kernel_ms, full = time_cuda(lambda: kernel(*args, **kw), reps=3)
+    if attempts is not None:
+        kw.update(attempts=attempts, finalize=False)
+    got = full if attempts is None else kernel(*args, **kw)
     t0 = time.perf_counter()
     ref = plain(*args, **kw)
     torch.cuda.synchronize()
@@ -348,13 +372,14 @@ def compare_march(dtype, compensated, flops_per_step, bl=False, attempts=None):
     agree = float(same.double().mean())
     eq = lambda g, r: bool(((g == r) | (g.isnan() & r.isnan()) if g.is_floating_point() else (g == r)).all())
     res = {
-        "kernel": "K3" if bl else "K1",
+        "kernel": "K3" if bl else "K1", "scene": os.path.basename(toml), "vols": len(spec.vols),
         "dtype": str(dtype).replace("torch.", ""), "compensated": compensated,
         "budget": kw["max_steps"], "attempts": kw.get("attempts", kw["max_steps"]),
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "stop_agreement": agree,
         "bit_identical": all(eq(g, r) for g, r in zip(got, ref)),
         "stops": torch.bincount(stop_g, minlength=8).tolist(),
-        "max_steps_taken": int(steps_g.max()), "sum_steps": int(steps_g.long().sum()),
+        "events": int(count_g.long().sum()), "overflowed": int(ovf_g.sum()),
+        "max_steps_taken": int(full[2].max()), "sum_steps": int(full[2].long().sum()),
         "steps_equal_on_agreeing": float((steps_g == steps_r)[same].double().mean()),
     }
     n = y0.shape[0]
@@ -378,10 +403,11 @@ def compare_march(dtype, compensated, flops_per_step, bl=False, attempts=None):
         ]
         ok = agree >= F64_STOP_AGREEMENT and res["y_rel_err"] <= F64_RTOL and res["ev_rel_err"] <= F64_RTOL
     else:
-        # Shade both through the same code and compare tone-mapped colors.
+        # Shade both through the same code and compare tone-mapped colors
+        # (volumetric slots unshaded: K5 is held against its plain version
+        # on its own).
         def colors(state):
-            r = IntegrationResult(*state)
-            return fast_path._finish_samples(scene, r, freq, solver, inverse, spec.opaque).color
+            return geometric_colors(scene, spec, IntegrationResult(*state), freq, solver, inverse)
 
         tone = lambda c: c / (1.0 + c)
         c_g, c_r = tone(colors(got)), tone(colors(ref))
@@ -392,6 +418,23 @@ def compare_march(dtype, compensated, flops_per_step, bl=False, attempts=None):
         ok = agree >= F32_STOP_AGREEMENT and res["max_abs_err"] <= F32_TONE_ATOL
     res["ok"] = bool(ok)
     return res
+
+
+def geometric_colors(scene, spec, res, freq, solver, inverse):
+    """The frame's colors from a march result through the geometric pass's
+    shading and fold, in pixel order; volumetric slots stay unshaded."""
+    import torch
+
+    from gr_raytracer_tpu_torch.rendering import fast_path
+    from gr_raytracer_tpu_torch.rendering import integrator as integ
+    from gr_raytracer_tpu_torch.rendering import scene as scn
+
+    if not spec.vols:
+        return fast_path._finish_samples(scene, res, freq, solver, inverse, spec.opaque).color
+    colors, fail = scn._shade_events(scene, freq, res, include_volumetric=False)
+    stop = torch.where(fail, integ.STEP_FAILED, res.stop_code)
+    celestial = scn._celestial_color(scene, freq, solver, res)
+    return scn.fold_samples(scene, res.ev_kind, colors, stop, celestial)[0][inverse]
 
 
 def fit_frame_inputs(dtype):
@@ -683,8 +726,8 @@ def _bl_one_lane():
 
 def count_bl_step_flops():
     """Arithmetic operations of one Mino-time RK4 step of the BL march, per
-    ray, counted on the plain step (count_flops); event stores are rare and
-    not counted."""
+    ray, counted on the plain step (count_ops's "float" class); event
+    stores are rare and not counted."""
     import math
 
     import torch
@@ -700,7 +743,7 @@ def count_bl_step_flops():
         y, torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
         *gm._event_buffers(1, f64, "cpu"), torch.zeros_like(y), one(1.0), one(2.0), one(5.0), one(1.0),
     )
-    return count_flops(lambda: gm._bl_plain_step(c, lanes, ()))
+    return count_ops(lambda: gm._bl_plain_step(c, lanes, ()))["float"]
 
 
 def count_bl_vjp_flops():
@@ -724,7 +767,7 @@ def count_bl_vjp_flops():
         )
         torch.autograd.grad((y_new, payload), (*leaves, y), (torch.ones_like(y_new), torch.ones_like(payload)))
 
-    return count_flops(vjp)
+    return count_ops(vjp)["float"]
 
 
 def bl_fit_scene(dtype):
@@ -747,27 +790,30 @@ def bl_fit_scene(dtype):
     return scene, fast_path.scene_kernel_spec(scene), x, p
 
 
-def cli_render(toml, size, camera, png, timer_module, timer_name):
-    """One CLI `render` (float32, the TOML's AA) into `png`; returns
-    (RenderOutput, seconds, launches of the kernel whose counter is
-    `timer_module.<timer_name>`, its ms from the launch timer)."""
+def cli_render(toml, size, camera, png, counters):
+    """One CLI `render` (float32, the TOML's AA) into `png`. `counters` are
+    (label, module, launch-counter name) triples, each counter set to 0
+    just before the render; returns (RenderOutput, seconds, {label:
+    (launches, ms from the launch timer)})."""
     import torch
 
     from gr_raytracer_tpu_torch import cli
 
-    timer = timer_name.replace("launches", "launch_timer")
-    setattr(timer_module, timer_name, 0)
-    setattr(timer_module, timer, [])
+    timers = [(label, module, name, name.replace("launches", "launch_timer")) for label, module, name in counters]
+    for _, module, name, timer in timers:
+        setattr(module, name, 0)
+        setattr(module, timer, [])
     argv = ["--width", str(size), "--height", str(size), *camera, "--max-steps", str(MAX_STEPS),
             "-c", toml, "render", "--filename", png]
     t0 = time.perf_counter()
     out = cli.main(argv)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = getattr(timer_module, timer_name)
-    ms = sum(s.elapsed_time(e) for s, e in getattr(timer_module, timer))
-    setattr(timer_module, timer, None)
-    return out, total_s, launches, ms
+    kernels = {}
+    for label, module, name, timer in timers:
+        kernels[label] = (getattr(module, name), sum(s.elapsed_time(e) for s, e in getattr(module, timer)))
+        setattr(module, timer, None)
+    return out, total_s, kernels
 
 
 def check_frame(out, png, size, codes, what):
@@ -916,6 +962,144 @@ def bl_fit_phase():
     return summary
 
 
+def count_raymarch_ops():
+    """Operations of one raymarch sample per lane, by class (count_ops), on
+    the plain sample of the main path's spec (kerr-volumetric-streaky: 8
+    octaves, blackbody texture)."""
+    import torch
+
+    from gr_raytracer_tpu_torch import config
+    from gr_raytracer_tpu_torch.ops import volumetric_march as vm
+    from gr_raytracer_tpu_torch.rendering import fast_path
+
+    f64 = torch.float64
+    scene = config.create_scene(config.load_config(VOL_TOML), config.RenderOptions(width=4, height=4), f64,
+                                torch.device("cpu"))
+    spec = fast_path.scene_kernel_spec(scene).vol_spec
+    one = lambda *v: torch.tensor([v], dtype=f64) if len(v) > 1 else torch.tensor(v, dtype=f64)
+    lanes = vm._Lanes(
+        one(8.0, 1.0, 0.01), one(-0.6, 0.8, -0.01), one(1.0), one(1.0), one(0.1), one(5.0), one(1e30),
+        one(-1e30), one(-1e30), one(10.0), one(1.0), torch.zeros((1, 3), dtype=f64), one(0.0), one(0.0),
+        torch.zeros(1, dtype=torch.bool), torch.zeros(1, dtype=torch.int32),
+    )
+    return count_ops(lambda: vm._march_step(spec, vm._constants(spec, f64, "cpu"), lanes))
+
+
+def raymarch_bound_ms(samples, n_lanes, ops, dtype):
+    """(bound ms, "bytes" or "operations") of a raymarch over `samples`
+    samples of `n_lanes` lanes: the larger of the float operations (with
+    exp, log and floor) over the FP peak, the integer operations over the
+    INT32 peak (SMs × 64 lanes × max clock), and 11 inputs and 4 outputs
+    (and the int32 sample count) per lane over the memory rate."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int_peak = sms * INT32_LANES_PER_SM * float(nvidia_smi("clocks.max.sm")) * 1e6
+    elem = 8 if dtype == torch.float64 else 4
+    float_ms = samples * (ops["float"] + ops["exp_log"] + ops["floor"]) / card_peak_flops(dtype) * 1e3
+    int_ms = samples * ops["int"] / int_peak * 1e3
+    bytes_ms = n_lanes * (15 * elem + 4) / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(float_ms, int_ms)
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def compare_raymarch(dtype, ops):
+    """K5 against its plain version on the volumetric lanes of the main
+    path's middle chunk (the kerr-volumetric-streaky 500² frame), both with
+    the march budget cut to VOL_COMPARE_STEPS samples; then K5 alone at the
+    scene's full budget. Returns a result dict."""
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import volumetric_march as vm
+    from gr_raytracer_tpu_torch.rendering import fast_path
+
+    scene, spec, y0, freq, solver, inverse = chunk_inputs(dtype, VOL_TOML, VOL_FRAME, VOL_CAMERA_KW)
+    res = fast_path._run_kernel(spec, scene.integration, solver, y0)
+    _, lanes = fast_path.volumetric_lanes(scene.objects[0], res[3], res[4], freq.observer_energy, freq.p_t,
+                                          freq.p_phi)
+    cut = spec.vol_spec._replace(max_steps=VOL_COMPARE_STEPS)
+    vm.raymarch(cut, *lanes)  # first launch: checks the kernel runs
+    torch.cuda.synchronize()
+    cut_ms, (got, n_got) = time_cuda(lambda: vm.raymarch(cut, *lanes), reps=3)
+    t0 = time.perf_counter()
+    ref, n_ref = vm.raymarch_plain(cut, *lanes)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    full_ms, (out, n_full) = time_cuda(lambda: vm.raymarch(spec.vol_spec, *lanes), reps=3)
+
+    n = lanes[0].shape[0]
+    samples = int(n_full.long().sum())
+    bound_ms, bound_by = raymarch_bound_ms(samples, n, ops, dtype)
+    tone = lambda c: c / (1.0 + c)
+    tone_err = (tone(got) - tone(ref)).abs().amax(dim=1)
+    scale = ref.abs().amax(dim=1)
+    lane_err = torch.where(scale > 0, (got - ref).abs().amax(dim=1) / scale.clamp(min=1e-300),
+                           got.abs().amax(dim=1))
+    r = {
+        "kernel": "K5", "dtype": str(dtype).replace("torch.", ""), "lanes": n,
+        "compare_budget": VOL_COMPARE_STEPS, "full_budget": spec.vol_spec.max_steps,
+        "bit_identical": bool(torch.equal(got, ref)) and bool(torch.equal(n_got, n_ref)),
+        "samples_equal": float((n_got == n_ref).double().mean()),
+        "compare_samples": int(n_ref.long().sum()), "compare_lanes_marched": int((n_ref > 0).sum()),
+        "kernel_ms_compare_budget": cut_ms, "plain_ms": plain_ms,
+        "kernel_ms": full_ms, "samples": samples, "max_samples": int(n_full.max()),
+        "lanes_alpha_gt_0": int((out[:, 3] > 0).sum()), "finite": bool(torch.isfinite(out).all()),
+        "samples_per_s": samples / (full_ms / 1e3), "bound_ms": bound_ms, "bound_by": bound_by,
+        "lane_rel_err_max": float(lane_err.max()), "max_abs_err": float(tone_err.max()),
+    }
+    if dtype == torch.float64:
+        r["lanes_within_tol"] = float((lane_err <= F64_RTOL).double().mean())
+        ok = r["lanes_within_tol"] >= F64_STOP_AGREEMENT
+    else:
+        r["lanes_within_tol"] = float((tone_err <= F32_TONE_ATOL).double().mean())
+        ok = r["lanes_within_tol"] >= F32_STOP_AGREEMENT
+    r["ok"] = bool(ok and r["finite"] and r["lanes_alpha_gt_0"] > 0 and r["compare_lanes_marched"] > 0)
+    return r
+
+
+def vol_frame_summary(out, png, size, total_s, ran, what, ops):
+    """The checks and numbers of a volumetric CLI frame: horizon and sky
+    rays, emitting K5 lanes, each kernel of `ran` (cli_render's) launched,
+    its ms, K5's share of the frame, the rays re-traced because they
+    overflowed their event slots, and (printed as a fault) those that
+    overflow the re-trace's slots too."""
+    import torch
+
+    from gr_raytracer_tpu_torch.rendering.raytracer import OVERFLOW_MAX_EVENTS
+
+    frame = check_frame(out, png, size, (1, 2), what)
+    pass1, aa = out.stats["pass1"], out.stats["aa"]
+    for label, (launches, _) in ran.items():
+        if launches == 0:
+            fail(f"{what}: the frame launched {label} no time")
+    if pass1.vol_emitting == 0:
+        fail(f"{what}: no raymarch lane emitted: {pass1}")
+    # Rays that overflowed their 8 event slots were traced again with 32
+    # through the same kernels (the JAX driver re-traces on its lax path); a
+    # ray that overflows those too keeps a truncated fold: a fault.
+    overflow = pass1.overflow + aa.overflow
+    dropped = pass1.overflow_dropped + aa.overflow_dropped
+    if dropped:
+        print(f"chip_smoke: FAULT (ROADMAP Queue 3): {what}: {dropped} rays overflow "
+              f"{OVERFLOW_MAX_EVENTS} event slots after their re-trace; their fold is truncated", flush=True)
+    k5_launches, k5_ms = ran["K5"]
+    samples = pass1.vol_samples + aa.vol_samples
+    frame.update({
+        "total_s": total_s, "scene_build_s": out.timings["scene_build"], "write_s": out.timings["write"],
+        "vol_lanes_pass1": pass1.vol_lanes, "vol_lanes_aa": aa.vol_lanes,
+        "vol_emitting_pass1": pass1.vol_emitting, "vol_emitting_aa": aa.vol_emitting,
+        "vol_samples_pass1": pass1.vol_samples, "vol_samples_aa": aa.vol_samples,
+        "overflow_retraced": overflow, "fault_overflow_truncated": dropped,
+        "k5_launches": k5_launches, "k5_ms": k5_ms,
+        "k5_share": k5_ms / 1e3 / total_s, "k5_samples_per_s": samples / max(k5_ms / 1e3, 1e-9),
+        "k5_bound_ms": raymarch_bound_ms(samples, pass1.vol_lanes + aa.vol_lanes, ops, torch.float32)[0],
+    })
+    for label, (launches, ms) in ran.items():
+        if label != "K5":
+            frame[f"{label.lower()}_launches"], frame[f"{label.lower()}_ms"] = launches, ms
+    return frame
+
+
 def main():
     import numpy as np
     import torch
@@ -931,6 +1115,7 @@ def main():
     from gr_raytracer_tpu_torch import cli
     from gr_raytracer_tpu_torch.ops import cuda_build
     from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+    from gr_raytracer_tpu_torch.ops import volumetric_march as vm
     from gr_raytracer_tpu_torch.utils.png import png_decode
 
     t_all = time.perf_counter()
@@ -1064,7 +1249,8 @@ def main():
     phase("9. BL main path: CLI render of kerr-bl.toml")
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, "render-kerr-bl.png")
-        out, total_s, bl_render_launches, k3_ms = cli_render(KERR_BL_TOML, FRAME, BL_CAMERA, png, gm, "bl_launches")
+        out, total_s, ran = cli_render(KERR_BL_TOML, FRAME, BL_CAMERA, png, (("K3", gm, "bl_launches"),))
+        bl_render_launches, k3_ms = ran["K3"]
         if bl_render_launches == 0:
             fail("the BL main path launched K3 no time")
         bl_main = check_frame(out, png, FRAME, (1, 2, 7), "kerr-bl.toml")
@@ -1080,7 +1266,8 @@ def main():
         with open(toml, "w") as f:
             f.write(SCHWARZSCHILD_DISC_TOML)
         png = os.path.join(tmp, "render-schwarzschild.png")
-        out, total_s, sch_launches, sch_ms = cli_render(toml, SCHWARZSCHILD_SIZE, BL_CAMERA, png, gm, "bl_launches")
+        out, total_s, ran = cli_render(toml, SCHWARZSCHILD_SIZE, BL_CAMERA, png, (("K3", gm, "bl_launches"),))
+        sch_launches, sch_ms = ran["K3"]
         if sch_launches == 0:
             fail("the Schwarzschild path launched K3 no time")
         sch = check_frame(out, png, SCHWARZSCHILD_SIZE, (1, 2), "Schwarzschild")
@@ -1105,18 +1292,62 @@ def main():
     bl_fit = bl_fit_phase()
     print(json.dumps(bl_fit), flush=True)
 
-    phase("13. kernels")
+    phase("13. K1 and K3 with volume events against their plain versions")
+    vol_marches = {}
+    for dtype in (torch.float32, torch.float64):
+        for bl in (False, True):
+            if bl:
+                r = compare_march(dtype, False, bl_flops_step, bl=True, attempts=BL_COMPARE_ATTEMPTS,
+                                  toml=BL_VOL_TOML, size=BL_VOL_FRAME, camera=BL_CAMERA_KW)
+            else:
+                r = compare_march(dtype, False, flops_per_step, toml=VOL_TOML, size=VOL_FRAME,
+                                  camera=VOL_CAMERA_KW)
+            vol_marches[(dtype, bl)] = r
+            print(json.dumps(r), flush=True)
+            if not (r["ok"] and r["events"] > 0):
+                fail(f"{r['kernel']} with volume events disagrees with its plain version: {r}")
+
+    phase("14. K5 against its plain version")
+    vol_ops = count_raymarch_ops()
+    print(f"operations per raymarch sample (plain sample, counted): {json.dumps(vol_ops)}")
+    raymarches = {}
+    for dtype in (torch.float32, torch.float64):
+        r = compare_raymarch(dtype, vol_ops)
+        raymarches[dtype] = r
+        print(json.dumps(r), flush=True)
+        if not r["ok"]:
+            fail(f"K5 disagrees with its plain version: {r}")
+
+    phase("15. volumetric main path: CLI render of kerr-volumetric-streaky")
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "render-volumetric.png")
+        out, total_s, ran = cli_render(VOL_TOML, VOL_FRAME, CAMERA, png,
+                                       (("K1", gm, "launches"), ("K5", vm, "launches")))
+        vol_main = vol_frame_summary(out, png, VOL_FRAME, total_s, ran, "kerr-volumetric-streaky", vol_ops)
+    print(json.dumps(vol_main), flush=True)
+
+    phase("16. BL volumetric path: CLI render of kerr-bl-volumetric-streaky")
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "render-bl-volumetric.png")
+        out, total_s, ran = cli_render(BL_VOL_TOML, BL_VOL_FRAME, BL_CAMERA, png,
+                                       (("K3", gm, "bl_launches"), ("K5", vm, "launches")))
+        bl_vol = vol_frame_summary(out, png, BL_VOL_FRAME, total_s, ran, "kerr-bl-volumetric-streaky", vol_ops)
+    print(json.dumps(bl_vol), flush=True)
+
+    phase("17. kernels")
     prod = variants[(torch.float32, False)]
     sweep = sweeps[torch.float32]
     bl_prod = bl_variants[(torch.float32, False)]
     bl_sweep = bl_sweeps[torch.float32]
+    raymarch = raymarches[torch.float32]
     kernels = [{
         "name": "kerr_rk4_march",
         "route": "cuda",
         "source": "gr_raytracer_tpu_torch/csrc/kerr_rk4_march.cu",
         "replaces": "gr_raytracer_tpu/ops/geodesic_pallas.py:790",
-        "launches": launches + fit["k1_launches"],
-        "launches_by_path": {"render": launches, "fit": fit["k1_launches"]},
+        "launches": launches + fit["k1_launches"] + vol_main["k1_launches"],
+        "launches_by_path": {"render": launches, "fit": fit["k1_launches"],
+                             "render_volumetric": vol_main["k1_launches"]},
         "max_abs_err": max(prod["max_abs_err"], variants[(torch.float32, True)]["max_abs_err"]),
         "ms": prod["kernel_ms"],
         "plain_ms": prod["plain_ms"],
@@ -1140,9 +1371,9 @@ def main():
         "route": "cuda",
         "source": "gr_raytracer_tpu_torch/csrc/kerr_bl_march.cu",
         "replaces": "gr_raytracer_tpu/ops/geodesic_pallas.py:1235",
-        "launches": bl_render_launches + sch_launches + bl_fit["k3_launches"],
+        "launches": bl_render_launches + sch_launches + bl_fit["k3_launches"] + bl_vol["k3_launches"],
         "launches_by_path": {"render_kerr_bl": bl_render_launches, "render_schwarzschild": sch_launches,
-                             "fit": bl_fit["k3_launches"]},
+                             "fit": bl_fit["k3_launches"], "render_bl_volumetric": bl_vol["k3_launches"]},
         "max_abs_err": max(bl_prod["max_abs_err"], bl_variants[(torch.float32, True)]["max_abs_err"]),
         "ms": bl_prod["kernel_ms"],
         "plain_ms": bl_prod["plain_ms"],
@@ -1160,6 +1391,22 @@ def main():
         "plain_ms": bl_sweep["plain_ms"],
         "bound_ms": bl_sweep["bound_ms"],
         "bound_by": bl_sweep["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "vol_raymarch",
+        "route": "cuda",
+        "source": "gr_raytracer_tpu_torch/csrc/vol_raymarch.cu",
+        "replaces": "gr_raytracer_tpu/ops/volumetric_pallas.py:782",
+        "launches": vol_main["k5_launches"] + bl_vol["k5_launches"],
+        "launches_by_path": {"render_volumetric": vol_main["k5_launches"],
+                             "render_bl_volumetric": bl_vol["k5_launches"]},
+        "max_abs_err": raymarch["max_abs_err"],
+        "ms": raymarch["kernel_ms"],
+        "plain_ms": raymarch["plain_ms"],
+        "plain_budget": VOL_COMPARE_STEPS,
+        "ms_at_plain_budget": raymarch["kernel_ms_compare_budget"],
+        "bound_ms": raymarch["bound_ms"],
+        "bound_by": raymarch["bound_by"],
         "library_ms": None,
     }]
     print(f"wall {time.perf_counter() - t_all:.1f}s")

@@ -100,12 +100,19 @@ def cmd_render(args, dtype, device):
         sampling_mask_color=mask_color,
         progress=True,
     )
+    t_write = time.perf_counter()
     rt.write_image(args.filename, out.color, tone_mapping=args.tone_mapping)
+    out = out._replace(timings={"scene_build": t_scene, "write": time.perf_counter() - t_write})
     print(f"scene build {t_scene:.2f}s", file=sys.stderr)
     for name, s in out.stats.items():
+        vol = ""
+        if s.vol_lanes:
+            vol = f", {s.vol_lanes} volumetric lanes ({s.vol_emitting} emitting), {s.vol_samples} samples"
         print(
             f"{name}: {s.rays} rays, {s.ray_steps} ray-steps in {s.seconds:.3f}s "
-            f"({s.rays / s.seconds:.0f} rays/s, {s.ray_steps / s.seconds:.4g} ray-steps/s)",
+            f"({s.rays / s.seconds:.0f} rays/s, {s.ray_steps / s.seconds:.4g} ray-steps/s"
+            f"{vol}, {s.overflow} re-traced for event overflow, {s.overflow_dropped} of them "
+            "still overflowing)",
             file=sys.stderr,
         )
     print(f"saved image to {args.filename} ({time.perf_counter() - t0:.1f}s)")

@@ -3,8 +3,9 @@ gr_raytracer_tpu/config.py).
 
 `parse_config` reads every scene file of scene-definitions/. `create_scene`
 assembles the geometries and objects this port supports so far — Kerr,
-KerrBL and Schwarzschild with thin discs and BlackBody, Checker or Bitmap
-textures — and raises ConfigError for the rest.
+KerrBL and Schwarzschild with thin discs and z-axis volumetric discs, and
+BlackBody, Checker or Bitmap textures — and raises ConfigError for the
+rest.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from gr_raytracer_tpu_torch.geometry.kerr import Kerr
 from gr_raytracer_tpu_torch.geometry.kerr_bl import KerrBL
 from gr_raytracer_tpu_torch.geometry.schwarzschild import Schwarzschild
 from gr_raytracer_tpu_torch.objects.disc import Disc
+from gr_raytracer_tpu_torch.objects.volumetric_disc import build_volumetric_disc
 from gr_raytracer_tpu_torch.rendering import camera as cam
 from gr_raytracer_tpu_torch.rendering import integrator as integ
 from gr_raytracer_tpu_torch.rendering import scene as scn
@@ -202,22 +204,33 @@ def build_objects(cfg: RenderConfig, geometry, factory: TextureFactory, dtype, d
     out = []
     for i, obj in enumerate(cfg.objects):
         kind = obj["kind"]
-        if kind != "Disc":
-            raise ConfigError(f"objects[{i}]: {kind!r} is not yet ported (Disc only)")
-        if not obj["inner_radius"] < obj["outer_radius"]:
+        if kind not in ("Disc", "VolumetricDisc"):
+            raise ConfigError(f"objects[{i}]: {kind!r} is not yet ported (Disc and VolumetricDisc only)")
+        if kind == "Disc" and not obj["inner_radius"] < obj["outer_radius"]:
             raise ConfigError(f"objects[{i}].Disc: inner_radius must be < outer_radius")
         tex = factory.build(obj["texture"])
         # Novikov-Thorne table: every geometry ported so far is a black hole;
         # Schwarzschild has no spin.
-        temperature = build_disc_temperature(
+        make_temperature = lambda: build_disc_temperature(
             geometry.radius, getattr(geometry, "a", 0.0), obj["temperature"], obj["outer_radius"],
             dtype, device,
         )
+        if kind == "VolumetricDisc":
+            try:
+                vol = build_volumetric_disc(obj, make_temperature, tex, dtype, device, index=i)
+            except ValueError as e:
+                raise ConfigError(str(e)) from e
+            if not vol.axis_is_z():
+                raise ConfigError(
+                    f"objects[{i}].VolumetricDisc: only the z axis is ported (got axis {obj.get('axis')})"
+                )
+            out.append(vol)
+            continue
         out.append(
             Disc(
                 inner_radius=torch.tensor(float(obj["inner_radius"]), dtype=dtype, device=device),
                 outer_radius=torch.tensor(float(obj["outer_radius"]), dtype=dtype, device=device),
-                temperature_model=temperature,
+                temperature_model=make_temperature(),
                 texture=tex,
             )
         )

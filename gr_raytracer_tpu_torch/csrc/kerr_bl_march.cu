@@ -24,13 +24,16 @@
 // functions live in kerr_bl_common.cuh, shared with the reverse sweep
 // kerr_bl_adjoint.cu, whose re-forward replays this march bit for bit.
 //
-// Options ported: disc events, the opaque stop, the Kahan-compensated
-// update, `attempts`, `finalize` and the reverse-sweep checkpoints. Sphere
-// and volume events and resume are rejected by the Python wrapper. A pole
+// Options ported: disc events, the bounding-volume events of z-axis
+// volumetric discs (vol_events.cuh, on the step's Kerr-Schild embedded
+// chord), the opaque stop, the Kahan-compensated update, `attempts`,
+// `finalize` and the reverse-sweep checkpoints. Sphere events and resume
+// are rejected by the Python wrapper. A pole
 // hit (sin θ = 0) gives a non-finite right-hand side and stops the lane
 // NAN, the documented classification.
 
 #include "kerr_bl_common.cuh"
+#include "vol_events.cuh"
 
 namespace {
 
@@ -46,12 +49,14 @@ struct Params {
   T disc_outer[kMaxDiscs];
   int disc_kind[kMaxDiscs];
   int n_discs;
+  VolTable<T> vols;
   int attempts;
   int budget_steps;
   int opaque_stop;
   int finalize;
   int compensated;
   int ckpt_every;  // 0: no checkpoints
+  int max_events;  // event slots per lane
 };
 
 template <typename T>
@@ -65,10 +70,10 @@ bl_march_kernel(const Params<T> P, const T* __restrict__ y0, const T* __restrict
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
 
-  int32_t* my_kind = ev_kind + lane * kMaxEvents;
-  T* my_data = ev_data + lane * kMaxEvents * kEventWidth;
-  for (int k = 0; k < kMaxEvents; ++k) my_kind[k] = -1;
-  for (int k = 0; k < kMaxEvents * kEventWidth; ++k) my_data[k] = T(0);
+  int32_t* my_kind = ev_kind + lane * P.max_events;
+  T* my_data = ev_data + lane * P.max_events * kEventWidth;
+  for (int k = 0; k < P.max_events; ++k) my_kind[k] = -1;
+  for (int k = 0; k < P.max_events * kEventWidth; ++k) my_data[k] = T(0);
 
   T y[8], comp[8];
 #pragma unroll
@@ -146,7 +151,7 @@ bl_march_kernel(const Params<T> P, const T* __restrict__ y0, const T* __restrict
       const T cphi = cos_(phi), sphi = sin_(phi);
       for (int dsc = 0; dsc < P.n_discs; ++dsc) {
         if (!(rr >= P.disc_inner[dsc] && rr <= P.disc_outer[dsc])) continue;
-        if (ev_count >= kMaxEvents) {
+        if (ev_count >= P.max_events) {
           ev_ovf = true;
           continue;
         }
@@ -165,8 +170,21 @@ bl_march_kernel(const Params<T> P, const T* __restrict__ y0, const T* __restrict
         ++ev_count;
       }
     }
-    // Opaque stop: the first event saturates the fold (after the store).
-    if (P.opaque_stop && code == kRunning && ev_count > 0) code = kSaturated;
+    // Volume events: gated on the embedded chord's z = r cos θ meeting a
+    // volume's band (z is linear between the chord's ends).
+    if (P.vols.n > 0 && vol_candidate(P.vols, y[1] * cos_(y[2]), y_new[1] * cos_(y_new[2]),
+                                      false, T(0))) {
+      T p_prev[4], p_new[4], s3[3], e3[3];
+      bl_momentum(P.radius, P.a, e, l_z, y, p_prev);
+      bl_momentum(P.radius, P.a, e, l_z, y_new, p_new);
+      bl_embed3(P.a, y, s3);
+      bl_embed3(P.a, y_new, e3);
+      store_vol_events(P.vols, s3, e3, p_prev, p_new, P.max_events, my_kind, my_data, ev_count,
+                       ev_ovf);
+    }
+    // Opaque stop: the first disc event saturates the fold (after the
+    // stores).
+    if (P.opaque_stop && P.n_discs > 0 && code == kRunning && ev_count > 0) code = kSaturated;
 
 #pragma unroll
     for (int i = 0; i < 8; ++i) y[i] = y_new[i];
@@ -184,17 +202,21 @@ bl_march_kernel(const Params<T> P, const T* __restrict__ y0, const T* __restrict
 }
 
 // params: radius, a, horizon_eps, h0, max_radius, h_min_frac, r_ref.
-// discs: n_discs rows of (inner, outer, kind). ints: attempts, budget_steps,
-// opaque_stop, finalize, compensated, ckpt_every. e, l_z, q: [n]. ckpt:
-// [S, 8, n] with S = ceil(attempts / ckpt_every), or null when ckpt_every
-// is 0.
+// discs: n_discs rows of (inner, outer, kind); vols: n_vols rows of (inner,
+// outer, cap_h, kind). ints: attempts, budget_steps, opaque_stop,
+// finalize, compensated, ckpt_every, max_events (the event slots of a lane:
+// ev_kind is [n, max_events], ev_data [n, max_events, 12]). e, l_z, q:
+// [n]. ckpt: [S, 8, n] with S = ceil(attempts / ckpt_every), or null when
+// ckpt_every is 0.
 template <typename T>
 int launch(const void* y0, const void* e, const void* l_z, const void* q, int64_t n, void* y_out,
            void* stop, void* steps, void* ev_kind, void* ev_data, void* ev_count, void* ev_ovf,
-           void* ckpt, const double* params, const double* discs, int n_discs, const int* ints,
-           void* stream) {
+           void* ckpt, const double* params, const double* discs, int n_discs, const double* vols,
+           int n_vols, const int* ints, void* stream) {
   if (n_discs < 0 || n_discs > kMaxDiscs) return (int)cudaErrorInvalidValue;
+  if (n_vols < 0 || n_vols > kMaxVols) return (int)cudaErrorInvalidValue;
   if (ints[5] < 0 || (ints[5] > 0 && ckpt == nullptr)) return (int)cudaErrorInvalidValue;
+  if (ints[6] < 1) return (int)cudaErrorInvalidValue;
   Params<T> P;
   P.radius = T(params[0]);
   P.a = T(params[1]);
@@ -210,12 +232,14 @@ int launch(const void* y0, const void* e, const void* l_z, const void* q, int64_
     P.disc_kind[i] = on ? (int)discs[3 * i + 2] : -1;
   }
   P.n_discs = n_discs;
+  fill_vol_table(P.vols, vols, n_vols);
   P.attempts = ints[0];
   P.budget_steps = ints[1];
   P.opaque_stop = ints[2];
   P.finalize = ints[3];
   P.compensated = ints[4];
   P.ckpt_every = ints[5];
+  P.max_events = ints[6];
   if (n > 0) {
     const int64_t blocks = (n + kThreads - 1) / kThreads;
     bl_march_kernel<T><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
@@ -234,18 +258,18 @@ int kerr_bl_rk4_march_f32(const void* y0, const void* e, const void* l_z, const 
                           int64_t n, void* y_out, void* stop, void* steps, void* ev_kind,
                           void* ev_data, void* ev_count, void* ev_ovf, void* ckpt,
                           const double* params, const double* discs, int n_discs,
-                          const int* ints, void* stream) {
+                          const double* vols, int n_vols, const int* ints, void* stream) {
   return launch<float>(y0, e, l_z, q, n, y_out, stop, steps, ev_kind, ev_data, ev_count, ev_ovf,
-                       ckpt, params, discs, n_discs, ints, stream);
+                       ckpt, params, discs, n_discs, vols, n_vols, ints, stream);
 }
 
 int kerr_bl_rk4_march_f64(const void* y0, const void* e, const void* l_z, const void* q,
                           int64_t n, void* y_out, void* stop, void* steps, void* ev_kind,
                           void* ev_data, void* ev_count, void* ev_ovf, void* ckpt,
                           const double* params, const double* discs, int n_discs,
-                          const int* ints, void* stream) {
+                          const double* vols, int n_vols, const int* ints, void* stream) {
   return launch<double>(y0, e, l_z, q, n, y_out, stop, steps, ev_kind, ev_data, ev_count, ev_ovf,
-                        ckpt, params, discs, n_discs, ints, stream);
+                        ckpt, params, discs, n_discs, vols, n_vols, ints, stream);
 }
 
 }  // extern "C"

@@ -26,9 +26,10 @@
 // metadata packing, the polynomial atan2) is not needed: atan2 comes from
 // the CUDA math library.
 //
-// Options ported: disc events, the opaque stop, the far-field lever, the
-// Kahan-compensated update, `attempts`, `finalize` and the reverse-sweep
-// checkpoints (`ckpt_every`). Sphere and volume events and resume are
+// Options ported: disc events, the bounding-volume events of z-axis
+// volumetric discs (vol_events.cuh), the opaque stop, the far-field lever,
+// the Kahan-compensated update, `attempts`, `finalize` and the
+// reverse-sweep checkpoints (`ckpt_every`). Sphere events and resume are
 // rejected by the Python wrapper.
 //
 // The device functions (right-hand side, step rule, p^μ) live in
@@ -36,6 +37,7 @@
 // that its re-forward replays this march bit for bit.
 
 #include "kerr_ks_common.cuh"
+#include "vol_events.cuh"
 
 namespace {
 
@@ -51,12 +53,14 @@ struct Params {
   T disc_outer[kMaxDiscs];
   int disc_kind[kMaxDiscs];
   int n_discs;
+  VolTable<T> vols;
   int attempts;
   int budget_steps;
   int opaque_stop;
   int finalize;
   int compensated;
   int ckpt_every;  // 0: no checkpoints
+  int max_events;  // event slots per lane
 };
 
 template <typename T>
@@ -69,10 +73,10 @@ march_kernel(const Params<T> P, const T* __restrict__ y0, int64_t n, T* __restri
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
 
-  int32_t* my_kind = ev_kind + lane * kMaxEvents;
-  T* my_data = ev_data + lane * kMaxEvents * kEventWidth;
-  for (int k = 0; k < kMaxEvents; ++k) my_kind[k] = -1;
-  for (int k = 0; k < kMaxEvents * kEventWidth; ++k) my_data[k] = T(0);
+  int32_t* my_kind = ev_kind + lane * P.max_events;
+  T* my_data = ev_data + lane * P.max_events * kEventWidth;
+  for (int k = 0; k < P.max_events; ++k) my_kind[k] = -1;
+  for (int k = 0; k < P.max_events * kEventWidth; ++k) my_data[k] = T(0);
 
   T y[8], comp[8];
 #pragma unroll
@@ -146,7 +150,7 @@ march_kernel(const Params<T> P, const T* __restrict__ y0, int64_t n, T* __restri
       const T cphi = cos_(phi), sphi = sin_(phi);
       for (int dsc = 0; dsc < P.n_discs; ++dsc) {
         if (!(rr >= P.disc_inner[dsc] && rr <= P.disc_outer[dsc])) continue;
-        if (ev_count >= kMaxEvents) {
+        if (ev_count >= P.max_events) {
           ev_ovf = true;
           continue;
         }
@@ -166,8 +170,27 @@ march_kernel(const Params<T> P, const T* __restrict__ y0, int64_t n, T* __restri
         ++ev_count;
       }
     }
-    // Opaque stop: the first event saturates the fold (after the store).
-    if (P.opaque_stop && code == kRunning && ev_count > 0) code = kSaturated;
+    // Volume events: gated on the chord's z range meeting a volume's band
+    // and its closest approach to the axis (in xy) lying inside the outer
+    // cylinder.
+    if (P.vols.n > 0) {
+      const T dx = y_new[1] - y[1], dy = y_new[2] - y[2];
+      const T a_c = dx * dx + dy * dy;
+      const T b_h = y[1] * dx + y[2] * dy;
+      const T rho0 = y[1] * y[1] + y[2] * y[2];
+      const T t_star = clip(-b_h / nmax(a_c, T(1e-20)), T(0), T(1));
+      const T rho_min2 = rho0 + (T(2) * b_h + a_c * t_star) * t_star;
+      if (vol_candidate(P.vols, z_prev, z_new, true, rho_min2)) {
+        T p_prev[4], p_new[4];
+        momentum_contra(P.radius, P.a, y, p_prev);
+        momentum_contra(P.radius, P.a, y_new, p_new);
+        store_vol_events(P.vols, y + 1, y_new + 1, p_prev, p_new, P.max_events, my_kind, my_data,
+                         ev_count, ev_ovf);
+      }
+    }
+    // Opaque stop: the first disc event saturates the fold (after the
+    // stores).
+    if (P.opaque_stop && P.n_discs > 0 && code == kRunning && ev_count > 0) code = kSaturated;
 
 #pragma unroll
     for (int i = 0; i < 8; ++i) y[i] = y_new[i];
@@ -186,15 +209,21 @@ march_kernel(const Params<T> P, const T* __restrict__ y0, int64_t n, T* __restri
 }
 
 // params: radius, a, horizon_eps, h0, max_radius, h_min_frac, r_ref, r_safe.
-// discs: n_discs rows of (inner, outer, kind). ints: attempts, budget_steps,
-// opaque_stop, finalize, compensated, ckpt_every. ckpt: [S, 8, n] with
-// S = ceil(attempts / ckpt_every), or null when ckpt_every is 0.
+// discs: n_discs rows of (inner, outer, kind); vols: n_vols rows of (inner,
+// outer, cap_h, kind). ints: attempts, budget_steps, opaque_stop,
+// finalize, compensated, ckpt_every, max_events (the event slots of a lane:
+// ev_kind is [n, max_events], ev_data [n, max_events, 12]). ckpt:
+// [S, 8, n] with S = ceil(attempts / ckpt_every), or null when ckpt_every
+// is 0.
 template <typename T>
 int launch(const void* y0, int64_t n, void* y_out, void* stop, void* steps, void* ev_kind,
            void* ev_data, void* ev_count, void* ev_ovf, void* ckpt, const double* params,
-           const double* discs, int n_discs, const int* ints, void* stream) {
+           const double* discs, int n_discs, const double* vols, int n_vols, const int* ints,
+           void* stream) {
   if (n_discs < 0 || n_discs > kMaxDiscs) return (int)cudaErrorInvalidValue;
+  if (n_vols < 0 || n_vols > kMaxVols) return (int)cudaErrorInvalidValue;
   if (ints[5] < 0 || (ints[5] > 0 && ckpt == nullptr)) return (int)cudaErrorInvalidValue;
+  if (ints[6] < 1) return (int)cudaErrorInvalidValue;
   Params<T> P;
   P.radius = T(params[0]);
   P.a = T(params[1]);
@@ -211,12 +240,14 @@ int launch(const void* y0, int64_t n, void* y_out, void* stop, void* steps, void
     P.disc_kind[i] = on ? (int)discs[3 * i + 2] : -1;
   }
   P.n_discs = n_discs;
+  fill_vol_table(P.vols, vols, n_vols);
   P.attempts = ints[0];
   P.budget_steps = ints[1];
   P.opaque_stop = ints[2];
   P.finalize = ints[3];
   P.compensated = ints[4];
   P.ckpt_every = ints[5];
+  P.max_events = ints[6];
   if (n > 0) {
     const int64_t blocks = (n + kThreads - 1) / kThreads;
     march_kernel<T><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
@@ -232,18 +263,20 @@ extern "C" {
 
 int kerr_rk4_march_f32(const void* y0, int64_t n, void* y_out, void* stop, void* steps,
                        void* ev_kind, void* ev_data, void* ev_count, void* ev_ovf, void* ckpt,
-                       const double* params, const double* discs, int n_discs, const int* ints,
+                       const double* params, const double* discs, int n_discs, const double* vols,
+                       int n_vols, const int* ints,
                        void* stream) {
   return launch<float>(y0, n, y_out, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, ckpt,
-                       params, discs, n_discs, ints, stream);
+                       params, discs, n_discs, vols, n_vols, ints, stream);
 }
 
 int kerr_rk4_march_f64(const void* y0, int64_t n, void* y_out, void* stop, void* steps,
                        void* ev_kind, void* ev_data, void* ev_count, void* ev_ovf, void* ckpt,
-                       const double* params, const double* discs, int n_discs, const int* ints,
+                       const double* params, const double* discs, int n_discs, const double* vols,
+                       int n_vols, const int* ints,
                        void* stream) {
   return launch<double>(y0, n, y_out, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, ckpt,
-                        params, discs, n_discs, ints, stream);
+                        params, discs, n_discs, vols, n_vols, ints, stream);
 }
 
 }  // extern "C"

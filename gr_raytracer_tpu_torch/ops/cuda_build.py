@@ -29,7 +29,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("kerr_rk4_march.cu", "kerr_ks_adjoint.cu", "kerr_bl_march.cu", "kerr_bl_adjoint.cu")
+SOURCES = (
+    "kerr_rk4_march.cu", "kerr_ks_adjoint.cu", "kerr_bl_march.cu", "kerr_bl_adjoint.cu",
+    "vol_raymarch.cu",
+)
 
 _lock = threading.Lock()
 _libs: dict = {}

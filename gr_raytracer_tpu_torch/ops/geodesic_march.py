@@ -13,8 +13,12 @@ their design and what bounds them.
 
 Kerr-Schild step size: h = h0 · clip((r − r₊)/r_ref, h_min_frac, 1), with
 the far-field lever (half-gap steps for outward lanes beyond r_safe).
-Events: equatorial thin-disc crossings into a K-slot per-lane buffer of
-12-wide payloads (point3 | p_contra4 | uv2 | seg_dir3).
+Events go into a K-slot per-lane buffer of 12-wide payloads (point3 |
+p_contra4 | uv2 | seg_dir3): equatorial thin-disc crossings, then
+crossings of a z-axis volumetric disc's bounding volume (its inner and
+outer cylinders clipped to ±cap_h), found by six candidate roots on the
+step's Cartesian chord; the raymarch then starts at the crossing point
+(ops/volumetric_march.py).
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ from gr_raytracer_tpu_torch.rendering import integrator as integ
 MAX_EVENTS = 8
 EVENT_WIDTH = 12
 MAX_DISCS = 8  # kMaxDiscs in the CUDA source
+MAX_VOLS = 8  # kMaxVols in csrc/vol_events.cuh
+MIN_INTERSECTION_T = 1e-9  # objects/volumetric_disc.py
 # Lanes are re-gathered every this many iterations of the plain march, so
 # finished lanes stop costing work.
 _COMPACT_EVERY = 32
@@ -48,6 +54,16 @@ class DiscSpec(NamedTuple):
 
     inner: float
     outer: float
+    kind: int  # object index in the scene
+
+
+class VolSpec(NamedTuple):
+    """Bounding volume of a z-axis volumetric disc: inner and outer
+    cylinders clipped to the caps at ±cap_h."""
+
+    inner: float
+    outer: float
+    cap_h: float
     kind: int  # object index in the scene
 
 
@@ -211,7 +227,7 @@ def _store_disc_events(discs, crossing, px, py, p_interp, seg, ev_kind, ev_data,
         u = 0.5 + 0.5 * r_norm * torch.cos(phi)
         v = 0.5 + 0.5 * r_norm * torch.sin(phi)
         payload = torch.stack([px, py, zero, *p_interp, u, v, *seg], dim=-1)  # [N, 12]
-        store = hit & (ev_count < MAX_EVENTS)
+        store = hit & (ev_count < ev_kind.shape[1])
         sel = lanes[store]
         slot = ev_count[store].long()
         ev_kind[sel, slot] = disc.kind
@@ -221,7 +237,81 @@ def _store_disc_events(discs, crossing, px, py, p_interp, seg, ev_kind, ev_data,
     return ev_count, ev_ovf
 
 
-def _plain_step(c, lanes, discs):
+def _store_vol_events(vols, cand, s3, e3, p_prev, p_new, ev_kind, ev_data, ev_count, ev_ovf):
+    """Append, per volume, the first bounding-volume crossing of each
+    candidate lane's chord s3 → e3 ([3, N] each): the smallest root in
+    (MIN_INTERSECTION_T, 1] of the two cylinders (within the caps) and the
+    two caps (within the annulus). Root finding cannot tunnel: a chord that
+    crosses the boundary has a root whatever its length."""
+    d = e3 - s3
+    d_dot = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    a_cyl = d[0] * d[0] + d[1] * d[1]
+    b_half = s3[0] * d[0] + s3[1] * d[1]
+    ss_xy = s3[0] * s3[0] + s3[1] * s3[1]
+    lanes = torch.arange(s3.shape[1], device=s3.device)
+    for vs in vols:
+        best_t = torch.full_like(ss_xy, math.inf)
+        for radius in (vs.outer, vs.inner):
+            c = ss_xy - radius * radius
+            disc = b_half * b_half - a_cyl * c
+            ok_base = (a_cyl >= 1e-10 * d_dot) & (disc >= 0.0)
+            sq = torch.sqrt(torch.clamp(disc, min=0.0))
+            safe_a = torch.where(a_cyl > 0.0, a_cyl, 1.0)
+            for tt in ((-b_half - sq) / safe_a, (-b_half + sq) / safe_a):
+                z_at = s3[2] + tt * d[2]
+                ok = ok_base & (tt > MIN_INTERSECTION_T) & (tt <= 1.0) & (torch.abs(z_at) <= vs.cap_h)
+                best_t = torch.where(ok & (tt < best_t), tt, best_t)
+        dz_ok = torch.abs(d[2]) > 1e-10
+        safe_dz = torch.where(dz_ok, d[2], 1.0)
+        for zc in (vs.cap_h, -vs.cap_h):
+            tt = (zc - s3[2]) / safe_dz
+            px = s3[0] + tt * d[0]
+            py = s3[1] + tt * d[1]
+            r2 = px * px + py * py
+            ok = (
+                dz_ok & (tt > MIN_INTERSECTION_T) & (tt <= 1.0)
+                & (r2 <= vs.outer * vs.outer) & (r2 >= vs.inner * vs.inner)
+            )
+            best_t = torch.where(ok & (tt < best_t), tt, best_t)
+
+        hit = cand & (best_t < math.inf)
+        t_ev = torch.where(hit, best_t, 0.0)
+        point = s3 + t_ev[None] * d
+        rr = torch.sqrt(point[0] * point[0] + point[1] * point[1])
+        phi = torch.atan2(point[1], point[0])
+        width = rr.new_tensor(vs.outer) - rr.new_tensor(vs.inner)
+        r_norm = (rr - vs.inner) / width
+        u = 0.5 + 0.5 * r_norm * torch.cos(phi)
+        v = 0.5 + 0.5 * r_norm * torch.sin(phi)
+        p_interp = p_prev + t_ev[None] * (p_new - p_prev)
+        payload = torch.stack([*point, *p_interp, u, v, *d], dim=-1)  # [N, 12]
+        store = hit & (ev_count < ev_kind.shape[1])
+        sel = lanes[store]
+        slot = ev_count[store].long()
+        ev_kind[sel, slot] = vs.kind
+        ev_data[sel, slot] = payload[store]
+        ev_count = ev_count + store.to(ev_count.dtype)
+        ev_ovf = ev_ovf | (hit & ~store)
+    return ev_count, ev_ovf
+
+
+def _vol_candidates(vols, active, z_prev, z_new, rho_min2=None):
+    """Lanes whose step may cross a bounding volume: the chord's z range
+    meets a volume's band and (when given) its closest squared distance to
+    the axis is inside the outer cylinder. Both are necessary for every
+    root, so gating the store on them changes no event."""
+    zmin = torch.minimum(z_prev, z_new)
+    zmax = torch.maximum(z_prev, z_new)
+    cand = torch.zeros_like(active)
+    for vs in vols:
+        near = (zmin <= vs.cap_h) & (zmax >= -vs.cap_h)
+        if rho_min2 is not None:
+            near = near & (rho_min2 <= vs.outer * vs.outer)
+        cand = cand | near
+    return cand & active
+
+
+def _plain_step(c, lanes, discs, vols=()):
     """One march iteration over `lanes`; stopped lanes stay frozen."""
     y, r_here, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, comp = lanes
     radius, a = c["radius"], c["a"]
@@ -267,17 +357,35 @@ def _plain_step(c, lanes, discs):
             ev_count, ev_ovf = _store_disc_events(
                 discs, crossing, px, py, p_interp, seg, ev_kind, ev_data, ev_count, ev_ovf
             )
-        if c["opaque_stop"]:
-            stop_new = torch.where(
-                (stop_new == integ.RUNNING) & (ev_count > 0), integ.SATURATED, stop_new
+    if vols:
+        # The chord's closest approach to the axis in the xy plane.
+        dx = y_new[1] - y[1]
+        dy = y_new[2] - y[2]
+        a_c = dx * dx + dy * dy
+        b_h = y[1] * dx + y[2] * dy
+        rho0 = y[1] * y[1] + y[2] * y[2]
+        t_star = torch.clamp(-b_h / torch.clamp(a_c, min=1e-20), 0.0, 1.0)
+        rho_min2 = rho0 + (2.0 * b_h + a_c * t_star) * t_star
+        cand = _vol_candidates(vols, active, y[3], y_new[3], rho_min2)
+        if bool(cand.any()):
+            p_prev = _momentum_contra(radius, a, y)
+            p_new = _momentum_contra(radius, a, y_new)
+            ev_count, ev_ovf = _store_vol_events(
+                vols, cand, y[1:4], y_new[1:4], p_prev, p_new, ev_kind, ev_data, ev_count, ev_ovf
             )
+    if discs and c["opaque_stop"]:
+        stop_new = torch.where(
+            (stop_new == integ.RUNNING) & (ev_count > 0), integ.SATURATED, stop_new
+        )
     r_carry = torch.where(active, r_new, r_here)
     return _Lanes(y_new, r_carry, stop_new, steps_new, ev_kind, ev_data, ev_count, ev_ovf, comp)
 
 
-def _check_args(y0, discs, spheres, vols, resume, ckpt_every):
-    if spheres or vols:
-        raise NotImplementedError("sphere and volume events are not yet ported")
+def _check_args(y0, discs, spheres, vols, resume, ckpt_every, max_events=MAX_EVENTS):
+    if int(max_events) < 1:
+        raise ValueError(f"max_events must be >= 1, got {max_events}")
+    if spheres:
+        raise NotImplementedError("sphere events are not yet ported")
     if resume is not None:
         raise NotImplementedError("resume is not yet ported")
     if int(ckpt_every) < 0:
@@ -288,17 +396,21 @@ def _check_args(y0, discs, spheres, vols, resume, ckpt_every):
         raise TypeError(f"y0 must be float32 or float64, got {y0.dtype}")
     if len(discs) > MAX_DISCS:
         raise NotImplementedError(f"at most {MAX_DISCS} discs per scene")
+    if len(vols) > MAX_VOLS:
+        raise NotImplementedError(f"at most {MAX_VOLS} volumetric discs per scene")
+    if not all(isinstance(v, VolSpec) for v in vols):
+        raise TypeError("vols must be VolSpec bounding volumes")
 
 
 def march_plain(
     radius, a, horizon_epsilon, y0, h0, max_steps, max_radius, discs=(), spheres=(), vols=(),
     h_min_frac=0.01, r_ref_scale=10.0, r_safe=0.0, opaque_stop=False, attempts=None,
-    resume=None, finalize=True, ckpt_every=0, compensated=False,
+    resume=None, finalize=True, ckpt_every=0, compensated=False, max_events=MAX_EVENTS,
 ):
     """The march in plain torch on y0's device; same arguments and results
     as `kerr_rk4_march`. Lanes are re-gathered every _COMPACT_EVERY
     iterations; the checkpoint rows go by the global iteration count."""
-    _check_args(y0, discs, spheres, vols, resume, ckpt_every)
+    _check_args(y0, discs, spheres, vols, resume, ckpt_every, max_events)
     dtype, device = y0.dtype, y0.device
     n = y0.shape[0]
     attempts = max_steps if attempts is None else int(attempts)
@@ -309,10 +421,10 @@ def march_plain(
     y = _lane_major_copy(y0)
     lanes = _Lanes(
         y, _ks_radius(c["a"], y[1], y[2], y[3]), torch.zeros(n, dtype=torch.int32, device=device),
-        torch.zeros(n, dtype=torch.int32, device=device), *_event_buffers(n, dtype, device),
-        torch.zeros_like(y),
+        torch.zeros(n, dtype=torch.int32, device=device),
+        *_event_buffers(n, dtype, device, int(max_events)), torch.zeros_like(y),
     )
-    return _march_lanes(lambda sub: _plain_step(c, sub, discs), lanes, attempts, finalize, ckpt_every)
+    return _march_lanes(lambda sub: _plain_step(c, sub, discs, vols), lanes, attempts, finalize, ckpt_every)
 
 
 def _march_lanes(step, lanes, attempts, finalize, ckpt_every):
@@ -354,11 +466,12 @@ def _lane_major_copy(y0):
     return y0.T.clone(memory_format=torch.contiguous_format)
 
 
-def _event_buffers(n, dtype, device):
-    """Fresh (ev_kind, ev_data, ev_count, ev_ovf) of a march."""
+def _event_buffers(n, dtype, device, max_events=MAX_EVENTS):
+    """Fresh (ev_kind, ev_data, ev_count, ev_ovf) of a march with
+    max_events slots a lane."""
     return (
-        torch.full((n, MAX_EVENTS), -1, dtype=torch.int32, device=device),
-        torch.zeros((n, MAX_EVENTS, EVENT_WIDTH), dtype=dtype, device=device),
+        torch.full((n, max_events), -1, dtype=torch.int32, device=device),
+        torch.zeros((n, max_events, EVENT_WIDTH), dtype=dtype, device=device),
         torch.zeros(n, dtype=torch.int32, device=device),
         torch.zeros(n, dtype=torch.bool, device=device),
     )
@@ -513,7 +626,7 @@ class _BLLanes(NamedTuple):
     inv_e: torch.Tensor
 
 
-def _bl_plain_step(c, lanes, discs):
+def _bl_plain_step(c, lanes, discs, vols=()):
     """One BL march iteration over `lanes`; stopped lanes stay frozen."""
     y, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, comp, e, l_z, q, inv_e = lanes
     radius, a = c["radius"], c["a"]
@@ -548,16 +661,27 @@ def _bl_plain_step(c, lanes, discs):
             ev_count, ev_ovf = _store_disc_events(
                 discs, crossing, px, py, p_interp, seg, ev_kind, ev_data, ev_count, ev_ovf
             )
-        if c["opaque_stop"]:
-            stop_new = torch.where(
-                (stop_new == integ.RUNNING) & (ev_count > 0), integ.SATURATED, stop_new
+    if vols:
+        # The embedded chord's z = r cos θ is linear between its ends.
+        cand = _vol_candidates(vols, active, y[1] * torch.cos(y[2]), y_new[1] * torch.cos(y_new[2]))
+        if bool(cand.any()):
+            p_prev = _bl_momentum(radius, a, e, l_z, y)
+            p_new = _bl_momentum(radius, a, e, l_z, y_new)
+            ev_count, ev_ovf = _store_vol_events(
+                vols, cand, _bl_embed3(a, y), _bl_embed3(a, y_new), p_prev, p_new, ev_kind, ev_data,
+                ev_count, ev_ovf,
             )
+    if discs and c["opaque_stop"]:
+        stop_new = torch.where(
+            (stop_new == integ.RUNNING) & (ev_count > 0), integ.SATURATED, stop_new
+        )
     return _BLLanes(y_new, stop_new, steps_new, ev_kind, ev_data, ev_count, ev_ovf, comp,
                     e, l_z, q, inv_e)
 
 
-def _check_bl_args(y0, e, l_z, q, discs, spheres, vols, resume, ckpt_every):
-    _check_args(y0, discs, spheres, vols, resume, ckpt_every)
+def _check_bl_args(y0, e, l_z, q, discs, spheres, vols, resume, ckpt_every,
+                   max_events=MAX_EVENTS):
+    _check_args(y0, discs, spheres, vols, resume, ckpt_every, max_events)
     n = y0.shape[0]
     for name, v in (("e", e), ("l_z", l_z), ("q", q)):
         if v.shape != (n,) or v.dtype != y0.dtype or v.device != y0.device:
@@ -567,11 +691,11 @@ def _check_bl_args(y0, e, l_z, q, discs, spheres, vols, resume, ckpt_every):
 def march_bl_plain(
     radius, a, horizon_epsilon, y0, e, l_z, q, h0, max_steps, max_radius, discs=(), spheres=(),
     vols=(), h_min_frac=0.02, r_ref_scale=10.0, opaque_stop=False, attempts=None, resume=None,
-    finalize=True, compensated=False, ckpt_every=0,
+    finalize=True, compensated=False, ckpt_every=0, max_events=MAX_EVENTS,
 ):
     """The BL march in plain torch on y0's device; same arguments and
     results as `kerr_bl_rk4_march`."""
-    _check_bl_args(y0, e, l_z, q, discs, spheres, vols, resume, ckpt_every)
+    _check_bl_args(y0, e, l_z, q, discs, spheres, vols, resume, ckpt_every, max_events)
     dtype, device = y0.dtype, y0.device
     n = y0.shape[0]
     attempts = max_steps if attempts is None else int(attempts)
@@ -584,10 +708,11 @@ def march_bl_plain(
     e, l_z, q = (v.detach().clone() for v in (e, l_z, q))
     lanes = _BLLanes(
         y, torch.zeros(n, dtype=torch.int32, device=device),
-        torch.zeros(n, dtype=torch.int32, device=device), *_event_buffers(n, dtype, device),
-        torch.zeros_like(y), e, l_z, q, 1.0 / torch.clamp(torch.abs(e), min=1e-12),
+        torch.zeros(n, dtype=torch.int32, device=device),
+        *_event_buffers(n, dtype, device, int(max_events)), torch.zeros_like(y), e, l_z, q,
+        1.0 / torch.clamp(torch.abs(e), min=1e-12),
     )
-    return _march_lanes(lambda sub: _bl_plain_step(c, sub, discs), lanes, attempts, finalize, ckpt_every)
+    return _march_lanes(lambda sub: _bl_plain_step(c, sub, discs, vols), lanes, attempts, finalize, ckpt_every)
 
 
 # ---------------------------------------------------------------------------
@@ -595,8 +720,8 @@ def march_bl_plain(
 # ---------------------------------------------------------------------------
 
 # The two kernels: K1 (Kerr-Schild) and K3 (Boyer-Lindquist). Entry points
-# take (y0[, e, l_z, q], n, outputs..., ckpt, params, discs, n_discs, ints,
-# stream) and return the CUDA error code of the launch.
+# take (y0[, e, l_z, q], n, outputs..., ckpt, params, discs, n_discs, vols,
+# n_vols, ints, stream) and return the CUDA error code of the launch.
 _KERNELS = {
     False: ("kerr_rk4_march", "kerr_rk4_march.cu"),
     True: ("kerr_bl_rk4_march", "kerr_bl_march.cu"),
@@ -617,15 +742,15 @@ def _entry(bl, dtype):
         fn.argtypes = [p] * (4 if bl else 1) + [
             ctypes.c_int64, p, p, p, p, p, p, p, p,
             ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double), ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int), p,
+            ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.POINTER(ctypes.c_int), p,
         ]
         fn.restype = ctypes.c_int
         _bound[(bl, dtype)] = fn
     return fn
 
 
-def _march_cuda(y0, consts, params, discs, max_steps, opaque_stop, attempts, finalize,
-                compensated, ckpt_every):
+def _march_cuda(y0, consts, params, discs, vols, max_steps, opaque_stop, attempts, finalize,
+                compensated, ckpt_every, max_events):
     """Allocate the outputs and launch K1 (consts empty) or K3 (consts =
     (e, l_z, q)); params are the kernel's float parameters in its order."""
     global launches, bl_launches
@@ -637,8 +762,8 @@ def _march_cuda(y0, consts, params, discs, max_steps, opaque_stop, attempts, fin
     y_out = torch.empty_like(y0)
     stop = torch.empty(n, dtype=torch.int32, device=dev)
     steps = torch.empty(n, dtype=torch.int32, device=dev)
-    ev_kind = torch.empty((n, MAX_EVENTS), dtype=torch.int32, device=dev)
-    ev_data = torch.empty((n, MAX_EVENTS, EVENT_WIDTH), dtype=dtype, device=dev)
+    ev_kind = torch.empty((n, max_events), dtype=torch.int32, device=dev)
+    ev_data = torch.empty((n, max_events, EVENT_WIDTH), dtype=dtype, device=dev)
     ev_count = torch.empty(n, dtype=torch.int32, device=dev)
     ev_ovf = torch.empty(n, dtype=torch.bool, device=dev)
     # Rows a lane never reaches stay unwritten (undefined), as on the TPU.
@@ -647,9 +772,12 @@ def _march_cuda(y0, consts, params, discs, max_steps, opaque_stop, attempts, fin
     disc_rows = (ctypes.c_double * (3 * MAX_DISCS))(
         *[float(v) for d in discs for v in (d.inner, d.outer, d.kind)]
     )
-    ints = (ctypes.c_int * 6)(
+    vol_rows = (ctypes.c_double * (4 * MAX_VOLS))(
+        *[float(v) for vs in vols for v in (vs.inner, vs.outer, vs.cap_h, vs.kind)]
+    )
+    ints = (ctypes.c_int * 7)(
         int(attempts), int(max_steps), int(bool(opaque_stop)), int(bool(finalize)),
-        int(bool(compensated)), int(ckpt_every),
+        int(bool(compensated)), int(ckpt_every), int(max_events),
     )
     fn = _entry(bl, dtype)
     timer = bl_launch_timer if bl else launch_timer
@@ -662,7 +790,7 @@ def _march_cuda(y0, consts, params, discs, max_steps, opaque_stop, attempts, fin
             y0.data_ptr(), *(v.data_ptr() for v in consts), n, y_out.data_ptr(), stop.data_ptr(),
             steps.data_ptr(), ev_kind.data_ptr(), ev_data.data_ptr(), ev_count.data_ptr(),
             ev_ovf.data_ptr(), None if ckpt is None else ckpt.data_ptr(), params, disc_rows,
-            len(discs), ints, stream.cuda_stream,
+            len(discs), vol_rows, len(vols), ints, stream.cuda_stream,
         )
         if err != 0:
             raise RuntimeError(f"{_KERNELS[bl][0]} kernel launch failed: CUDA error {err}")
@@ -680,62 +808,67 @@ def _march_cuda(y0, consts, params, discs, max_steps, opaque_stop, attempts, fin
 def kerr_rk4_march(
     radius, a, horizon_epsilon, y0, h0, max_steps, max_radius, discs=(), spheres=(), vols=(),
     h_min_frac=0.01, r_ref_scale=10.0, r_safe=0.0, opaque_stop=False, attempts=None,
-    resume=None, finalize=True, ckpt_every=0, compensated=False,
+    resume=None, finalize=True, ckpt_every=0, compensated=False, max_events=MAX_EVENTS,
 ):
     """March N rays from y0 [N, 8] (position | covariant momentum).
 
     Returns (y [N, 8], stop [N] i32, steps [N] i32, ev_kind [N, K] i32,
-    ev_data [N, K, 12], ev_count [N] i32, ev_overflow [N] bool), and with
+    ev_data [N, K, 12], ev_count [N] i32, ev_overflow [N] bool) with K =
+    max_events slots a lane (an event past them sets ev_overflow), and with
     ckpt_every = K > 0 an 8th result: the pre-step state every K
     iterations, [S, 8, N] with S = ceil(attempts / K) (the reverse sweep's
     checkpoints, ops/geodesic_adjoint.py; rows with seg·K ≥ steps[lane] are
     undefined).
 
-    r_safe > 0 enables the far-field lever; opaque_stop stops a lane at its
-    first recorded event (exact when every texture is opaque); `attempts`
+    vols (VolSpec) records bounding-volume crossings of z-axis volumetric
+    discs after the disc events of a step. r_safe > 0 enables the far-field
+    lever; opaque_stop stops a lane at its first disc event (exact when
+    every texture is opaque); `attempts`
     bounds the iterations (default max_steps); finalize=False leaves
     unfinished lanes RUNNING instead of BUDGET; compensated selects the
     Kahan state update. A CUDA tensor goes through the kernel, a CPU tensor
     through `march_plain`."""
-    _check_args(y0, discs, spheres, vols, resume, ckpt_every)
+    _check_args(y0, discs, spheres, vols, resume, ckpt_every, max_events)
     if y0.device.type == "cpu":
         return march_plain(
-            radius, a, horizon_epsilon, y0, h0, max_steps, max_radius, discs=discs,
+            radius, a, horizon_epsilon, y0, h0, max_steps, max_radius, discs=discs, vols=vols,
             h_min_frac=h_min_frac, r_ref_scale=r_ref_scale, r_safe=r_safe,
             opaque_stop=opaque_stop, attempts=attempts, finalize=finalize,
-            ckpt_every=ckpt_every, compensated=compensated,
+            ckpt_every=ckpt_every, compensated=compensated, max_events=max_events,
         )
     if y0.device.type != "cuda":
         raise ValueError(f"unsupported device {y0.device}")
     attempts = max_steps if attempts is None else int(attempts)
     params = (radius, a, horizon_epsilon, h0, max_radius, h_min_frac, r_ref_scale, r_safe)
-    return _march_cuda(y0, (), params, tuple(discs), max_steps, opaque_stop, attempts, finalize,
-                       compensated, int(ckpt_every))
+    return _march_cuda(y0, (), params, tuple(discs), tuple(vols), max_steps, opaque_stop, attempts,
+                       finalize, compensated, int(ckpt_every), int(max_events))
 
 
 def kerr_bl_rk4_march(
     radius, a, horizon_epsilon, y0, e, l_z, q, h0, max_steps, max_radius, discs=(), spheres=(),
     vols=(), h_min_frac=0.02, r_ref_scale=10.0, opaque_stop=False, attempts=None, resume=None,
-    finalize=True, compensated=False, ckpt_every=0,
+    finalize=True, compensated=False, ckpt_every=0, max_events=MAX_EVENTS,
 ):
     """The Carter-separated Mino-time march of N rays from y0 [N, 8] =
     (t, r, θ, φ, v_r, v_θ, 0, 0) with their conserved E, L_z, Q [N].
 
     Same options and results as `kerr_rk4_march`, without the far-field
-    lever. Disc events record the Kerr-Schild embedding of the crossing
-    point, the interpolated BL contravariant momentum and the embedded
-    segment. A CUDA tensor goes through the kernel csrc/kerr_bl_march.cu,
+    lever. Disc and volume events record the Kerr-Schild embedding of the
+    crossing point, the interpolated BL contravariant momentum and the
+    embedded segment (volume roots are found on the embedded chord). A
+    CUDA tensor goes through the kernel csrc/kerr_bl_march.cu,
     a CPU tensor through `march_bl_plain`."""
-    _check_bl_args(y0, e, l_z, q, discs, spheres, vols, resume, ckpt_every)
+    _check_bl_args(y0, e, l_z, q, discs, spheres, vols, resume, ckpt_every, max_events)
     if y0.device.type == "cpu":
         return march_bl_plain(
             radius, a, horizon_epsilon, y0, e, l_z, q, h0, max_steps, max_radius, discs=discs,
-            h_min_frac=h_min_frac, r_ref_scale=r_ref_scale, opaque_stop=opaque_stop,
+            vols=vols, h_min_frac=h_min_frac, r_ref_scale=r_ref_scale, opaque_stop=opaque_stop,
             attempts=attempts, finalize=finalize, compensated=compensated, ckpt_every=ckpt_every,
+            max_events=max_events,
         )
     if y0.device.type != "cuda":
         raise ValueError(f"unsupported device {y0.device}")
     attempts = max_steps if attempts is None else int(attempts)
     params = (radius, a, horizon_epsilon, h0, max_radius, h_min_frac, r_ref_scale)
-    return _march_cuda(y0, (e, l_z, q), params, tuple(discs), max_steps, opaque_stop, attempts,
-                       finalize, compensated, int(ckpt_every))
+    return _march_cuda(y0, (e, l_z, q), params, tuple(discs), tuple(vols), max_steps, opaque_stop,
+                       attempts, finalize, compensated, int(ckpt_every), int(max_events))

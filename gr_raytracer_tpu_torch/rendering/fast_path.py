@@ -1,19 +1,23 @@
 """Kernel path: full-scene tracing through the RK4 marches (port of the
-disc part of gr_raytracer_tpu/rendering/fast_path.py).
+disc and volumetric parts of gr_raytracer_tpu/rendering/fast_path.py).
 
 Applies to Kerr (Kerr-Schild Cartesian, the K1 march) and to KerrBL and
 Schwarzschild (the Mino-time K3 march; Schwarzschild rides it as KerrBL
-with a = 0, whose chart is its spherical one) with thin discs: kerr.toml,
-kerr-bl.toml and the flagship preset. Integration and disc-crossing
-detection run in the march (ops/geodesic_march.py); shading and the alpha
-fold are the deferred passes of rendering/scene.py, with the scene's own
-geometry. Nothing here synchronizes with the card, so chunks of rays can be
-queued ahead of the host.
+with a = 0, whose chart is its spherical one) with thin discs and z-axis
+volumetric discs: kerr.toml, kerr-bl.toml, the flagship preset and the
+volumetric scenes. Integration and crossing detection run in the march
+(ops/geodesic_march.py); shading and the alpha fold are the deferred passes
+of rendering/scene.py, with the scene's own geometry. A scene whose one
+object is a volumetric disc goes through `trace_rays_fast_vol`: the
+geometric march, the compaction of its volumetric event slots, and one
+raymarch K5 over them (ops/volumetric_march.py). Nothing here synchronizes
+with the card except that compaction (one count per chunk), so chunks of
+rays can be queued ahead of the host.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -21,7 +25,9 @@ from gr_raytracer_tpu_torch.geometry.kerr import Kerr
 from gr_raytracer_tpu_torch.geometry.kerr_bl import KerrBL
 from gr_raytracer_tpu_torch.geometry.schwarzschild import Schwarzschild
 from gr_raytracer_tpu_torch.objects.disc import Disc
+from gr_raytracer_tpu_torch.objects.volumetric_disc import CAP_HEIGHT_SIGMAS, VolumetricDisc
 from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+from gr_raytracer_tpu_torch.ops import volumetric_march as vm
 from gr_raytracer_tpu_torch.rendering import integrator as integ
 from gr_raytracer_tpu_torch.rendering import scene as scn
 from gr_raytracer_tpu_torch.rendering.redshift import ray_frequency_data
@@ -33,10 +39,12 @@ DEEP_BUDGET_COMPENSATION = 100_000
 
 
 def supports_scene(scene) -> bool:
-    """Kerr, KerrBL or Schwarzschild with thin discs only (the part of the
-    JAX fast path that is ported so far)."""
+    """Kerr, KerrBL or Schwarzschild with thin discs and z-axis volumetric
+    discs (the part of the JAX fast path that is ported so far; spheres are
+    not)."""
+    supported = lambda o: isinstance(o, Disc) or (isinstance(o, VolumetricDisc) and o.axis_is_z())
     return isinstance(scene.geometry, (Kerr, KerrBL, Schwarzschild)) and all(
-        isinstance(o, Disc) for o in scene.objects
+        supported(o) for o in scene.objects
     )
 
 
@@ -69,10 +77,11 @@ def _impact_proxy(geometry, x, p):
 
 class KernelSpec(NamedTuple):
     """Static march configuration read once from a concrete scene: the
-    march geometry's parameters as host floats, the disc specs, the
-    far-field safe radius (Kerr-Schild only), whether every texture is
-    opaque (the first hit saturates the alpha fold), and whether the march
-    is the Mino-time one."""
+    march geometry's parameters as host floats, the disc and bounding-volume
+    specs, the far-field safe radius (Kerr-Schild only), whether every
+    texture is opaque (the first hit saturates the alpha fold), whether the
+    march is the Mino-time one, and the raymarch spec when the scene's one
+    object is a volumetric disc the raymarch supports."""
 
     radius: float
     a: float
@@ -81,28 +90,39 @@ class KernelSpec(NamedTuple):
     r_safe: float
     opaque: bool
     mino: bool
+    vols: tuple = ()
+    vol_spec: Optional[vm.VolSpec] = None
 
 
 def scene_kernel_spec(scene) -> KernelSpec:
     if not supports_scene(scene):
         raise NotImplementedError(
-            "the kernel path supports Kerr, KerrBL and Schwarzschild with thin discs only; "
-            "other scenes are not yet ported"
+            "the kernel path supports Kerr, KerrBL and Schwarzschild with thin discs and z-axis "
+            "volumetric discs only; other scenes are not yet ported"
         )
     host = lambda v: float(torch.as_tensor(v).detach())  # frozen: no gradient
-    discs = []
+    discs, vols = [], []
     extent = 0.0
     for idx, o in enumerate(scene.objects):
-        discs.append(gm.DiscSpec(host(o.inner_radius), host(o.outer_radius), idx))
+        if isinstance(o, VolumetricDisc):
+            vols.append(gm.VolSpec(host(o.inner_radius), host(o.outer_radius),
+                                   host(o.thickness) * CAP_HEIGHT_SIGMAS, idx))
+        else:
+            discs.append(gm.DiscSpec(host(o.inner_radius), host(o.outer_radius), idx))
         extent = max(extent, host(o.outer_radius))
     geometry = _march_geometry_of(scene)
     # Far-field lever: 2× the outermost object extent, floored at 10×M so the
     # strong-field region keeps the h0 cadence.
     r_safe = 2.0 * max(extent, 5.0 * host(geometry.radius))
-    opaque = bool(scene.objects) and all(o.texture.is_opaque() for o in scene.objects)
+    # A volumetric fold has alpha < 1 whatever its texture (Beer-Lambert), so
+    # any volumetric object turns the opaque stop off.
+    opaque = bool(scene.objects) and not vols and all(o.texture.is_opaque() for o in scene.objects)
+    vol_spec = None
+    if len(scene.objects) == 1 and vols and vm.supports(scene.objects[0], scene.geometry):
+        vol_spec = vm.build_vol_spec(scene.objects[0], scene.geometry)
     return KernelSpec(
         host(geometry.radius), host(geometry.a), host(geometry.horizon_epsilon),
-        tuple(discs), r_safe, opaque, isinstance(geometry, KerrBL),
+        tuple(discs), r_safe, opaque, isinstance(geometry, KerrBL), tuple(vols), vol_spec,
     )
 
 
@@ -146,7 +166,8 @@ def _run_kernel(spec: KernelSpec, cfg, solver, y0):
             spec.radius, spec.a, spec.horizon_epsilon, y0, solver.e.contiguous(),
             solver.l_z.contiguous(), solver.q.contiguous(), h0=0.01,
             max_steps=2 * cfg.max_steps, max_radius=cfg.max_radius, discs=spec.discs,
-            opaque_stop=spec.opaque, compensated=compensated,
+            vols=spec.vols, opaque_stop=spec.opaque, compensated=compensated,
+            max_events=cfg.max_events,
         )
     return gm.kerr_rk4_march(
         spec.radius,
@@ -157,9 +178,11 @@ def _run_kernel(spec: KernelSpec, cfg, solver, y0):
         max_steps=cfg.max_steps,
         max_radius=cfg.max_radius,
         discs=spec.discs,
+        vols=spec.vols,
         r_safe=spec.r_safe,
         opaque_stop=spec.opaque,
         compensated=compensated,
+        max_events=cfg.max_events,
     )
 
 
@@ -190,6 +213,93 @@ def trace_rays_fast(scene, positions, momenta, spec=None):
     solver, y0, freq, inverse = _prepare_march(scene, positions, momenta)
     res = integ.IntegrationResult(*_run_kernel(spec, scene.integration, solver, y0))
     return _finish_samples(scene, res, freq, solver, inverse, first_event_only=spec.opaque)
+
+
+def trace_geometric_fast(scene, positions, momenta, spec=None) -> scn.GeoTrace:
+    """The march, event detection and surface and sky shading, without the
+    volumetric raymarch; in the caller's ray order."""
+    if spec is None:
+        spec = scene_kernel_spec(scene)
+    solver, y0, freq, inverse = _prepare_march(scene, positions, momenta)
+    res = integ.IntegrationResult(*_run_kernel(spec, scene.integration, solver, y0))
+    colors, shade_fail = scn._shade_events(scene, freq, res, include_volumetric=False)
+    stop_shaded = torch.where(shade_fail, integ.STEP_FAILED, res.stop_code)
+    celestial = scn._celestial_color(scene, freq, solver, res)
+    return scn.GeoTrace(
+        surface_colors=colors[inverse], celestial=celestial[inverse], ev_kind=res.ev_kind[inverse],
+        ev_data=res.ev_data[inverse], stop_code=stop_shaded[inverse],
+        observer_energy=freq.observer_energy[inverse], p_t=freq.p_t[inverse],
+        p_phi=freq.p_phi[inverse], ev_overflow=res.ev_overflow[inverse], steps=res.steps[inverse],
+    )
+
+
+def volumetric_lanes(obj, ev_kind, ev_data, observer_energy, p_t, p_phi):
+    """The raymarch's lanes for every event slot of `obj`, the scene's one
+    object (kind 0): (slots [M] into the flattened [N·K] slots, (ro, rd,
+    obs_e, p_t, p_phi, active, exit_d)), both sorted by the clipped march
+    length. ro is the crossing point and rd the unit chord of the step that
+    crossed. The compaction reads its exact count: one host sync."""
+    k = ev_kind.shape[1]
+    slots = torch.nonzero((ev_kind == 0).reshape(-1)).flatten()
+    ev = ev_data.reshape(-1, ev_data.shape[-1])[slots]
+    ro = ev[:, 0:3]
+    seg = ev[:, 9:12]
+    rd = seg / torch.clamp(torch.sqrt(torch.sum(seg * seg, dim=-1, keepdim=True)), min=1e-30)
+    exit_d = obj.exit_distance(ro, rd)
+    order = torch.argsort(vm.march_length(obj, ro, rd, exit_d))
+    ray = (slots // k)[order]
+    lanes = (
+        ro[order].contiguous(), rd[order].contiguous(), observer_energy[ray].contiguous(),
+        p_t[ray].contiguous(), p_phi[ray].contiguous(), torch.ones_like(order, dtype=torch.bool),
+        exit_d[order].contiguous(),
+    )
+    return slots[order], lanes
+
+
+class VolTrace(NamedTuple):
+    """`trace_rays_fast_vol`'s result: the samples, the number of volumetric
+    event lanes raymarched, the samples K5 marched over them and the lanes
+    whose alpha came out > 0 (0-d tensors on the rays' device, so reading
+    them is the caller's choice)."""
+
+    samples: scn.RaySamples
+    lanes: int
+    marched: torch.Tensor
+    emitting: torch.Tensor
+
+
+def trace_rays_fast_vol(scene, positions, momenta, spec=None) -> VolTrace:
+    """Color camera rays of a scene whose one object is a z-axis volumetric
+    disc: the geometric march, the compaction of the volumetric event slots
+    (`volumetric_lanes`: their exact count, exit_distance, the march-length
+    sort), one raymarch K5 over the slots, scatter and the alpha fold. K5's
+    per-lane result does not depend on lane order, so the sort only groups
+    lanes of similar length into warps. With the exact count there are no
+    padding lanes to park. Other volumetric scenes raise
+    NotImplementedError."""
+    if spec is None:
+        spec = scene_kernel_spec(scene)
+    if spec.vol_spec is None:
+        raise NotImplementedError(
+            "the volumetric kernel path takes scenes whose one object is a z-axis volumetric "
+            "disc with a blackbody or checker texture"
+        )
+    g = trace_geometric_fast(scene, positions, momenta, spec)
+    n, k = g.ev_kind.shape
+    slots, lanes = volumetric_lanes(scene.objects[0], g.ev_kind, g.ev_data, g.observer_energy, g.p_t, g.p_phi)
+    colors = torch.zeros((n * k, 4), dtype=g.ev_data.dtype, device=g.ev_data.device)
+    marched = torch.zeros((), dtype=torch.int64, device=g.ev_data.device)
+    emitting = torch.zeros_like(marched)
+    if slots.numel():
+        xyza, lane_samples = vm.raymarch(spec.vol_spec, *lanes)
+        colors[slots] = xyza
+        marched = lane_samples.sum(dtype=torch.int64)
+        emitting = (xyza[:, 3] > 0.0).sum()
+    color, ray_class = scn.fold_samples(
+        scene, g.ev_kind, colors.reshape(n, k, 4), g.stop_code, g.celestial
+    )
+    samples = scn.RaySamples(color, ray_class, g.stop_code, g.steps, g.ev_overflow)
+    return VolTrace(samples, int(slots.numel()), marched, emitting)
 
 
 def supports_diff(scene) -> bool:

@@ -29,12 +29,15 @@ SATURATED = 7
 @dataclass(frozen=True)
 class IntegrationConfig:
     """Integration budget. step_size and epsilon belong to the adaptive
-    RKF45 path; the fixed-step kernel path reads max_radius and max_steps."""
+    RKF45 path; the fixed-step kernel path reads max_radius, max_steps and
+    max_events (the event slots of a ray; the render driver re-traces a ray that
+    overflows them with more, rendering/raytracer.py)."""
 
     max_radius: float
     step_size: float
     epsilon: float
     max_steps: int = 20000
+    max_events: int = 8
 
 
 class IntegrationResult(NamedTuple):

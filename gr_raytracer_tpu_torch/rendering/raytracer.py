@@ -3,7 +3,10 @@
 
   * Pass 1 traces the section of the pixel grid in fixed-size chunks through
     the kernel path. The chunks form a one-deep pipeline: chunk i+1 is
-    queued on the card before chunk i's results are read on the host.
+    queued on the card before chunk i's results are read on the host. A
+    volumetric scene's chunk syncs once inside (the count of its volumetric
+    event slots, fast_path.trace_rays_fast_vol), after which its raymarch
+    and fold are queued behind the next chunk's march.
   * The 8-neighbor contrast selection is a host stencil in numpy, faithful
     to the reference's pair test (Michelson epsilon, luminance floor,
     exclude_background_contrast).
@@ -15,6 +18,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 from typing import NamedTuple, Optional
@@ -29,6 +33,9 @@ from gr_raytracer_tpu_torch.rendering import integrator as integ
 from gr_raytracer_tpu_torch.rendering import scene as scn
 from gr_raytracer_tpu_torch.utils.png import png_encode
 
+# A ray whose event slots overflow is traced again with this many (the JAX
+# package's re-trace capacity; it re-traces on its lax RKF45 path).
+OVERFLOW_MAX_EVENTS = 32
 MICHELSON_DENOMINATOR_EPSILON = 1e-4
 RELATIVE_MINIMUM_LUMINANCE_FRACTION = 1e-3
 
@@ -121,19 +128,56 @@ class TraceStats(NamedTuple):
     rays: int
     ray_steps: int  # Σ per-ray march steps
     stop_counts: np.ndarray  # rays per stop code (rendering/integrator.py)
+    vol_lanes: int = 0  # volumetric event slots raymarched
+    vol_samples: int = 0  # Σ samples the raymarch took over them
+    vol_emitting: int = 0  # volumetric lanes whose alpha came out > 0
+    overflow: int = 0  # rays that overflowed their event slots and were re-traced
+    overflow_dropped: int = 0  # of those, rays that overflowed the re-trace's slots too
 
 
 def _trace_chunk(scene, spec, row_f, col_f):
+    """One chunk through the kernel path: (color, ray_class, stop_code,
+    ev_overflow, steps, and for a volumetric scene the samples marched and
+    the emitting lanes as 0-d tensors), and the number of volumetric
+    lanes."""
     x, p = cam.pixel_rays(scene.camera, row_f, col_f)
-    s = fast_path.trace_rays_fast(scene, x, p, spec=spec)
-    return s.color, s.ray_class, s.stop_code, s.ev_overflow, s.steps
+    if spec.vols:
+        v = fast_path.trace_rays_fast_vol(scene, x, p, spec=spec)
+        s, extra, lanes = v.samples, (v.marched, v.emitting), v.lanes
+    else:
+        s, extra, lanes = fast_path.trace_rays_fast(scene, x, p, spec=spec), (), 0
+    return (s.color, s.ray_class, s.stop_code, s.ev_overflow, s.steps, *extra), lanes
+
+
+def _retrace_overflow(scene, spec, row_f, col_f):
+    """Trace the rays whose event slots overflowed again, with
+    OVERFLOW_MAX_EVENTS slots, through the same kernel path (the reference
+    records every crossing; the JAX package re-traces on its lax path).
+    Returns _trace_chunk's host results. A ray that overflows those slots
+    too keeps its first OVERFLOW_MAX_EVENTS events, with a warning, as in
+    the JAX package."""
+    cfg = scene.integration
+    wide = dataclasses.replace(
+        scene, integration=dataclasses.replace(cfg, max_events=OVERFLOW_MAX_EVENTS)
+    )
+    outs, lanes = _trace_chunk(wide, spec, row_f, col_f)
+    outs = [o.cpu().numpy() for o in outs]
+    if outs[3].any():
+        print(
+            f"[raytracer] {int(outs[3].sum())} rays still overflow {OVERFLOW_MAX_EVENTS} events "
+            "after their re-trace",
+            file=sys.stderr,
+        )
+    return outs, lanes
 
 
 def trace_pixels_chunked(scene, row_f, col_f, chunk_size: int, progress: bool = False):
     """Trace arbitrary (fractional) pixel coordinates in fixed-size chunks.
     Returns (color [N, 4], ray_class [N], ok [N], TraceStats) with numpy
     arrays; ok=False marks rays whose shading failed, which supersample
-    averages exclude."""
+    averages exclude. Rays that overflow their event slots are traced again
+    with OVERFLOW_MAX_EVENTS (`_retrace_overflow`); the re-trace's work
+    counts in the stats."""
     spec = fast_path.scene_kernel_spec(scene)
     n = row_f.shape[0]
     device = scene.camera.position.device
@@ -145,35 +189,45 @@ def trace_pixels_chunked(scene, row_f, col_f, chunk_size: int, progress: bool = 
     colors = np.zeros((n, 4), np.float32 if dtype == torch.float32 else np.float64)
     classes = np.zeros((n,), np.int32)
     ok_all = np.ones((n,), bool)
-    ray_steps = 0
+    ray_steps = vol_lanes = vol_samples = vol_emitting = overflowed = dropped = 0
     stop_counts = np.zeros(integ.SATURATED + 1, np.int64)
     t_start = time.perf_counter()
 
     def _dispatch(start, end):
-        outs = _trace_chunk(scene, spec, rows_d[start:end], cols_d[start:end])
+        outs, lanes = _trace_chunk(scene, spec, rows_d[start:end], cols_d[start:end])
         if not on_cuda:
-            return start, end, outs, None
+            return start, end, outs, lanes, None
         # Queue the copies now, so they precede the next chunk on the stream.
         host = tuple(o.to("cpu", non_blocking=True) for o in outs)
         done = torch.cuda.Event()
         done.record()
-        return start, end, host, done
+        return start, end, host, lanes, done
 
     def _drain(chunk):
-        nonlocal ray_steps
-        start, end, outs, done = chunk
+        nonlocal ray_steps, vol_lanes, vol_samples, vol_emitting, overflowed, dropped
+        start, end, outs, lanes, done = chunk
         if done is not None:
             done.synchronize()
-        c, k, stop, ovf, steps = (o.numpy() for o in outs)
-        if ovf.any():
-            raise RuntimeError(
-                f"{int(ovf.sum())} rays overflowed the {fast_path.gm.MAX_EVENTS}-slot event "
-                "buffer; the overflow re-trace is not yet ported"
-            )
+        c, k, stop, ovf, steps, *vol = (o.numpy() for o in outs)
+        idx = np.nonzero(ovf)[0]
+        if idx.size:
+            sel = torch.as_tensor(start + idx, device=device)
+            retraced, lanes2 = _retrace_overflow(scene, spec, rows_d[sel], cols_d[sel])
+            c2, k2, stop2, ovf2, steps2, *vol2 = retraced
+            c[idx], k[idx], stop[idx] = c2, k2, stop2
+            ray_steps += int(steps2.astype(np.int64).sum())
+            vol_lanes += lanes2
+            vol = [a + b for a, b in zip(vol, vol2)]
+            overflowed += idx.size
+            dropped += int(ovf2.sum())
         colors[start:end] = c
         classes[start:end] = k
         ok_all[start:end] = stop != integ.STEP_FAILED
         ray_steps += int(steps.astype(np.int64).sum())
+        vol_lanes += lanes
+        if vol:
+            vol_samples += int(vol[0])
+            vol_emitting += int(vol[1])
         stop_counts[:] += np.bincount(stop, minlength=stop_counts.size)
         if progress:
             rate = end / max(time.perf_counter() - t_start, 1e-9)
@@ -189,7 +243,8 @@ def trace_pixels_chunked(scene, row_f, col_f, chunk_size: int, progress: bool = 
         _drain(pending)
     if progress:
         print(file=sys.stderr)
-    stats = TraceStats(time.perf_counter() - t_start, n, ray_steps, stop_counts)
+    stats = TraceStats(time.perf_counter() - t_start, n, ray_steps, stop_counts, vol_lanes, vol_samples,
+                       vol_emitting, overflowed, dropped)
     return colors, classes, ok_all, stats
 
 
@@ -203,6 +258,7 @@ class RenderOutput(NamedTuple):
     ray_class: np.ndarray  # [H, W]
     supersample_mask: Optional[np.ndarray]  # [H, W] bool (None if AA disabled)
     stats: dict  # "pass1" / "aa": TraceStats of each traced pass
+    timings: Optional[dict] = None  # seconds of the CLI's other parts (cli.cmd_render)
 
 
 def render_section(

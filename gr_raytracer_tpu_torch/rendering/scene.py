@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from gr_raytracer_tpu_torch.geometry import chart as charts
+from gr_raytracer_tpu_torch.objects.volumetric_disc import VolumetricDisc
 from gr_raytracer_tpu_torch.rendering import integrator as integ
 from gr_raytracer_tpu_torch.rendering.integrator import IntegrationConfig
 
@@ -77,11 +78,32 @@ class RaySamples(NamedTuple):
     ev_overflow: torch.Tensor  # [N] bool
 
 
-def _shade_events(scene, freq, res):
+class GeoTrace(NamedTuple):
+    """The geometric pass (march and surface shading) with what the render driver
+    needs to raymarch the volumetric events separately."""
+
+    surface_colors: torch.Tensor  # [N, K, 4], volumetric slots zero
+    celestial: torch.Tensor  # [N, 4]
+    ev_kind: torch.Tensor  # [N, K]
+    ev_data: torch.Tensor  # [N, K, 12]
+    stop_code: torch.Tensor  # [N]
+    observer_energy: torch.Tensor  # [N]
+    p_t: torch.Tensor  # [N]
+    p_phi: torch.Tensor  # [N]
+    ev_overflow: torch.Tensor  # [N] bool
+    steps: torch.Tensor  # [N] march steps
+
+
+def _shade_events(scene, freq, res, include_volumetric=True):
     """Deferred shading of the [N, K] event buffer -> (colors [N, K, 4],
     shade_fail [N]). A thin-disc sample below r_isco with a Novikov-Thorne
     model is the reference's per-pixel error; callers map the flag to
-    STEP_FAILED, which the fold renders as the default sample."""
+    STEP_FAILED, which the fold renders as the default sample.
+
+    With include_volumetric=False the volumetric slots stay zero: the render driver
+    raymarches them on a compacted lane set (rendering/fast_path.py) and
+    folds. Shading them here (the JAX package's lax raymarch) is not yet
+    ported and raises."""
     geometry = scene.geometry
     n, k = res.ev_kind.shape
     dtype, device = res.ev_data.dtype, res.ev_data.device
@@ -101,6 +123,13 @@ def _shade_events(scene, freq, res):
     colors = torch.zeros((n, k, 4), dtype=dtype, device=device)
     shade_fail = torch.zeros((n,), dtype=torch.bool, device=device)
     for idx, obj in enumerate(scene.objects):
+        if isinstance(obj, VolumetricDisc):
+            if include_volumetric:
+                raise NotImplementedError(
+                    "volumetric events are shaded by the compacted raymarch only "
+                    "(fast_path.trace_rays_fast_vol)"
+                )
+            continue
         mask = res.ev_kind == idx
         u_emit, ok = obj.emitter_velocity(geometry, pos_native)
         emitter_energy = geometry.inner_product(pos_native, u_emit, p_interp)

@@ -138,7 +138,7 @@ def test_bl_wrapper_rejects_unported_options():
     with pytest.raises(NotImplementedError):
         gm.kerr_bl_rk4_march(*args, spheres=(object(),))
     with pytest.raises(NotImplementedError):
-        gm.kerr_bl_rk4_march(*args, vols=(object(),))
+        gm.kerr_bl_rk4_march(*args, vols=(gm.VolSpec(3.0, 6.0, 0.3, 0),) * (gm.MAX_VOLS + 1))
     with pytest.raises(NotImplementedError):
         gm.kerr_bl_rk4_march(*args, resume=gm.kerr_bl_rk4_march(*args))
     with pytest.raises(ValueError):
