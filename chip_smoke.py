@@ -64,9 +64,24 @@ non-zero on failure:
      slots, and, as a fault, those that overflowed the re-trace's 32 too;
  16. the BL volumetric path: the CLI `render` of
      kerr-bl-volumetric-streaky at 256×256 through K3 and K5;
- 17. one JSON line {"kernels": [...]} with each kernel's launches, error
+ 17. the raw-output raymarch K6 against its plain version on phase 14's
+     lanes, float32 and float64, at VOL_COMPARE_STEPS samples; its results
+     combined (combine_alpha) against K5's XYZA; K6 alone at 50,000;
+ 18. the volumetric backward K7 against its plain version on the same
+     lanes with seeded cotangents, float64 and float32, at
+     VOL_BWD_COMPARE_STEPS samples (K2's bars); K7 alone at 50,000;
+ 19. the volumetric gradient path of scripts/grad_scale_probe.py --vol
+     (kerr-volumetric-streaky 256², hero #5's camera, budget 20,000, the
+     TOML's 50,000-sample raymarch, float32): one value and gradient of its
+     loss over the five medium parameters (finite; K1, K6 and K7 must
+     launch), then the first 20 steps of its 60-step density_multiplier and
+     absorption fit from (300, 0.6): the loss must fall and both must move
+     toward (500, 0.3); where a step's time goes;
+ 20. one value and gradient on kerr-bl-volumetric-streaky at 128² through
+     K3, K6 and K7: finite and nonzero;
+ 21. one JSON line {"kernels": [...]} with each kernel's launches, error
      against its plain version, times and bound;
- 18. the last line: {"ok": true, "device": {...}}.
+ 22. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -146,6 +161,20 @@ VOL_CAMERA_KW = dict(camera_position=(-10.0, 0.0, -0.5), theta=1.52, psi=-1.57)
 # The K5 comparison's march budget (samples): the plain loop costs a few
 # milliseconds per sample, so this keeps each plain run near half a minute.
 VOL_COMPARE_STEPS = 2000
+# The K7 comparison's march budget (samples): the plain backward (the
+# forward sample and its torch.autograd VJP, ~1,000 torch ops) costs several
+# times K5's plain sample, so this keeps each plain run near twenty seconds.
+VOL_BWD_COMPARE_STEPS = 400
+# The volumetric gradient path: scripts/grad_scale_probe.py --vol (hero #5's
+# camera at 256², budget 20,000, the TOML's 50,000-sample raymarch; the fit
+# of density_multiplier and absorption from 0.6× and 2× their true values,
+# clip 1.0 ahead of Adam with the cosine schedule (5e-2, 60, 0.02), of which
+# the first VOL_FIT_STEPS steps run), and its BL variant at 128².
+VOL_FIT_SIZE = 256
+VOL_FIT_STEPS = 20
+VOL_FIT_SCHEDULE = (5e-2, 60, 0.02)
+VOL_FIT_START = (0.6, 2.0)  # × the true density_multiplier and absorption
+BL_VOL_GRAD_SIZE = 128
 FP32_LANES_PER_SM = 128  # Hopper: FP32 units per SM
 FP64_LANES_PER_SM = 64
 INT32_LANES_PER_SM = 64  # Hopper: INT32 units per SM
@@ -589,9 +618,10 @@ def compare_adjoint(dtype, march, spec, flops_step, flops_vjp, consts=()):
 
 def fit_step_breakdown(render, loss_fn, target, params):
     """Where one fit step's time goes: host clock around each part, each
-    ended by a synchronize; then the device's busy share of one more step,
-    from a torch.profiler trace (the sum of device time over the step's
-    wall time; None when the trace shows no device time)."""
+    ended by a synchronize; then the device's busy share of one more step
+    from a torch.profiler trace: the union of the device's kernel, copy and
+    set intervals inside the step's window over the window's length (None
+    when the trace shows no device activity)."""
     import torch
 
     leaves = [v.requires_grad_(True) for v in params.values()]
@@ -614,12 +644,33 @@ def fit_step_breakdown(render, loss_fn, target, params):
     mark = lambda name: None  # the profiled step runs without the synchronizes
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
-    return split, (device_us / wall_us if device_us > 0 else None)
+        with torch.profiler.record_function("fit_step"):
+            step()
+            torch.cuda.synchronize()
+    return split, device_busy_share(prof.events(), "fit_step")
+
+
+def device_busy_share(events, window_name):
+    """The union of the device intervals of a profiler trace that fall in
+    the host range `window_name`, over that range's length; None when no
+    device interval falls in it. The range's own device-side annotation is
+    not device work and is left out."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    window = next(e for e in events if e.name == window_name and e.device_type != cuda)
+    lo, hi = window.time_range.start, window.time_range.end
+    spans = sorted(
+        (max(e.time_range.start, lo), min(e.time_range.end, hi)) for e in events
+        if e.device_type == cuda and e.name != window_name and not getattr(e, "is_user_annotation", False)
+    )
+    busy, end = 0.0, lo
+    for start, stop in spans:
+        start = max(start, end)
+        if stop > start:
+            busy += stop - start
+            end = stop
+    return busy / (hi - lo) if busy > 0 else None
 
 
 def fit_phase():
@@ -982,15 +1033,17 @@ def count_raymarch_ops():
         one(-1e30), one(-1e30), one(10.0), one(1.0), torch.zeros((1, 3), dtype=f64), one(0.0), one(0.0),
         torch.zeros(1, dtype=torch.bool), torch.zeros(1, dtype=torch.int32),
     )
-    return count_ops(lambda: vm._march_step(spec, vm._constants(spec, f64, "cpu"), lanes))
+    c = vm._constants(spec, f64, "cpu")
+    return count_ops(lambda: vm._march_step(spec, c, lanes, vm._medium(spec, c)))
 
 
-def raymarch_bound_ms(samples, n_lanes, ops, dtype):
+def raymarch_bound_ms(samples, n_lanes, ops, dtype, lane_bytes=None):
     """(bound ms, "bytes" or "operations") of a raymarch over `samples`
     samples of `n_lanes` lanes: the larger of the float operations (with
     exp, log and floor) over the FP peak, the integer operations over the
-    INT32 peak (SMs × 64 lanes × max clock), and 11 inputs and 4 outputs
-    (and the int32 sample count) per lane over the memory rate."""
+    INT32 peak (SMs × 64 lanes × max clock), and `lane_bytes` per lane over
+    the memory rate (default K5's: 11 inputs and 4 outputs and the int32
+    sample count)."""
     import torch
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -998,9 +1051,19 @@ def raymarch_bound_ms(samples, n_lanes, ops, dtype):
     elem = 8 if dtype == torch.float64 else 4
     float_ms = samples * (ops["float"] + ops["exp_log"] + ops["floor"]) / card_peak_flops(dtype) * 1e3
     int_ms = samples * ops["int"] / int_peak * 1e3
-    bytes_ms = n_lanes * (15 * elem + 4) / HBM_BYTES_PER_S * 1e3
+    bytes_ms = n_lanes * (15 * elem + 4 if lane_bytes is None else lane_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = max(float_ms, int_ms)
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def lane_errors(got, ref):
+    """Per lane: max |got − ref| over the lane's largest |ref|, or max |got|
+    where the reference lane is all zero."""
+    import torch
+
+    scale = ref.abs().amax(dim=1)
+    diff = (got - ref).abs().amax(dim=1)
+    return torch.where(scale > 0, diff / scale.clamp(min=1e-300), got.abs().amax(dim=1))
 
 
 def compare_raymarch(dtype, ops):
@@ -1011,13 +1074,9 @@ def compare_raymarch(dtype, ops):
     import torch
 
     from gr_raytracer_tpu_torch.ops import volumetric_march as vm
-    from gr_raytracer_tpu_torch.rendering import fast_path
 
-    scene, spec, y0, freq, solver, inverse = chunk_inputs(dtype, VOL_TOML, VOL_FRAME, VOL_CAMERA_KW)
-    res = fast_path._run_kernel(spec, scene.integration, solver, y0)
-    _, lanes = fast_path.volumetric_lanes(scene.objects[0], res[3], res[4], freq.observer_energy, freq.p_t,
-                                          freq.p_phi)
-    cut = spec.vol_spec._replace(max_steps=VOL_COMPARE_STEPS)
+    vol_spec, lanes, _ = vol_chunk_lanes(dtype)
+    cut = vol_spec._replace(max_steps=VOL_COMPARE_STEPS)
     vm.raymarch(cut, *lanes)  # first launch: checks the kernel runs
     torch.cuda.synchronize()
     cut_ms, (got, n_got) = time_cuda(lambda: vm.raymarch(cut, *lanes), reps=3)
@@ -1025,19 +1084,17 @@ def compare_raymarch(dtype, ops):
     ref, n_ref = vm.raymarch_plain(cut, *lanes)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    full_ms, (out, n_full) = time_cuda(lambda: vm.raymarch(spec.vol_spec, *lanes), reps=3)
+    full_ms, (out, n_full) = time_cuda(lambda: vm.raymarch(vol_spec, *lanes), reps=3)
 
     n = lanes[0].shape[0]
     samples = int(n_full.long().sum())
     bound_ms, bound_by = raymarch_bound_ms(samples, n, ops, dtype)
     tone = lambda c: c / (1.0 + c)
     tone_err = (tone(got) - tone(ref)).abs().amax(dim=1)
-    scale = ref.abs().amax(dim=1)
-    lane_err = torch.where(scale > 0, (got - ref).abs().amax(dim=1) / scale.clamp(min=1e-300),
-                           got.abs().amax(dim=1))
+    lane_err = lane_errors(got, ref)
     r = {
         "kernel": "K5", "dtype": str(dtype).replace("torch.", ""), "lanes": n,
-        "compare_budget": VOL_COMPARE_STEPS, "full_budget": spec.vol_spec.max_steps,
+        "compare_budget": VOL_COMPARE_STEPS, "full_budget": vol_spec.max_steps,
         "bit_identical": bool(torch.equal(got, ref)) and bool(torch.equal(n_got, n_ref)),
         "samples_equal": float((n_got == n_ref).double().mean()),
         "compare_samples": int(n_ref.long().sum()), "compare_lanes_marched": int((n_ref > 0).sum()),
@@ -1100,7 +1157,295 @@ def vol_frame_summary(out, png, size, total_s, ran, what, ops):
     return frame
 
 
+def vol_chunk_lanes(dtype):
+    """(raymarch spec, lanes, the disc's [5] medium) of the volumetric slots
+    of the main path's middle chunk of the 500² kerr-volumetric-streaky
+    frame, compacted and sorted as the render does."""
+    from gr_raytracer_tpu_torch import inverse
+    from gr_raytracer_tpu_torch.rendering import fast_path
+
+    scene, spec, y0, freq, solver, _ = chunk_inputs(dtype, VOL_TOML, VOL_FRAME, VOL_CAMERA_KW)
+    res = fast_path._run_kernel(spec, scene.integration, solver, y0)
+    _, lanes = fast_path.volumetric_lanes(scene.objects[0], res[3], res[4], freq.observer_energy, freq.p_t,
+                                          freq.p_phi)
+    return spec.vol_spec, lanes, inverse.disc_medium(scene.objects[0]).contiguous()
+
+
+def compare_raymarch_raw(dtype, ops):
+    """K6 against its plain version on phase 14's lanes, both with the march
+    budget cut to VOL_COMPARE_STEPS samples; K6 alone at the scene's full
+    budget, and its results combined (combine_alpha) against K5's XYZA on
+    the same lanes. Returns a result dict."""
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import volumetric_adjoint as va
+    from gr_raytracer_tpu_torch.ops import volumetric_march as vm
+
+    vol_spec, lanes, med = vol_chunk_lanes(dtype)
+    cut = vol_spec._replace(max_steps=VOL_COMPARE_STEPS)
+    vm.raymarch_raw(cut, med, *lanes)  # first launch: checks the kernel runs
+    torch.cuda.synchronize()
+    cut_ms, got = time_cuda(lambda: vm.raymarch_raw(cut, med, *lanes), reps=3)
+    t0 = time.perf_counter()
+    ref = vm.raymarch_raw_plain(cut, med, *lanes)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    full_ms, full = time_cuda(lambda: vm.raymarch_raw(vol_spec, med, *lanes), reps=3)
+    k5, n_full = vm.raymarch(vol_spec, *lanes)
+    combined = va.combine_alpha(*full)
+
+    stack = lambda r: torch.cat([r[0], torch.stack(r[1:], dim=1)], dim=1)
+    lane_err = lane_errors(stack(got), stack(ref))
+    tone = lambda c: c / (1.0 + c)
+    n = lanes[0].shape[0]
+    samples = int(n_full.long().sum())
+    bound_ms, bound_by = raymarch_bound_ms(samples, n, ops, dtype, lane_bytes=17 * lanes[0].element_size())
+    k5_err = (tone(combined) - tone(k5)).abs().amax(dim=1)
+    r = {
+        "kernel": "K6", "dtype": str(dtype).replace("torch.", ""), "lanes": n,
+        "compare_budget": VOL_COMPARE_STEPS, "full_budget": vol_spec.max_steps,
+        "bit_identical": all(bool(torch.equal(g, w)) for g, w in zip(got, ref)),
+        "kernel_ms_compare_budget": cut_ms, "plain_ms": plain_ms, "kernel_ms": full_ms, "samples": samples,
+        "samples_per_s": samples / (full_ms / 1e3), "bound_ms": bound_ms, "bound_by": bound_by,
+        "lane_rel_err_max": float(lane_err.max()),
+        "max_abs_err": float((tone(stack(got)) - tone(stack(ref))).abs().max()),
+        "finite": all(bool(torch.isfinite(v).all()) for v in full),
+        "k5_bit_identical": bool(torch.equal(combined, k5)),
+        "k5_lanes_equal": float((combined == k5).all(dim=1).double().mean()),
+        "k5_tone_err_max": float(k5_err.max()),
+        "sigma_sum_in_dtype": float(med[2] + med[3]), "sigma_host": float(vol_spec.absorption + vol_spec.scattering),
+    }
+    if dtype == torch.float64:
+        r["lanes_within_tol"] = float((lane_err <= F64_RTOL).double().mean())
+        ok = r["lanes_within_tol"] >= F64_STOP_AGREEMENT and r["k5_bit_identical"]
+    else:
+        r["lanes_within_tol"] = float(((tone(stack(got)) - tone(stack(ref))).abs().amax(dim=1) <= F32_TONE_ATOL)
+                                      .double().mean())
+        ok = r["lanes_within_tol"] >= F32_STOP_AGREEMENT and r["k5_tone_err_max"] <= F32_TONE_ATOL
+    r["ok"] = bool(ok and r["finite"])
+    return r
+
+
+def count_vol_bwd_ops():
+    """Operations of one sample of the plain backward per lane, by class
+    (count_ops): the forward optics and their torch.autograd VJP
+    (ops/volumetric_adjoint.py _bwd_step), on the main path's spec."""
+    import torch
+
+    from gr_raytracer_tpu_torch import config
+    from gr_raytracer_tpu_torch.ops import volumetric_adjoint as va
+    from gr_raytracer_tpu_torch.ops import volumetric_march as vm
+    from gr_raytracer_tpu_torch.rendering import fast_path
+
+    f64 = torch.float64
+    scene = config.create_scene(config.load_config(VOL_TOML), config.RenderOptions(width=4, height=4), f64,
+                                torch.device("cpu"))
+    spec = fast_path.scene_kernel_spec(scene).vol_spec
+    one = lambda *v: torch.tensor([v], dtype=f64) if len(v) > 1 else torch.tensor(v, dtype=f64)
+    lanes = va._BwdLanes(
+        one(8.0, 1.0, 0.01), one(-0.6, 0.8, -0.01), one(1.0), one(1.0), one(0.1), one(5.0), one(1e30),
+        one(-1e30), one(-1e30), torch.ones((1, va.CT_VARS), dtype=f64), one(10.0), one(1.0), one(0.0),
+        torch.zeros(1, dtype=torch.bool), torch.zeros((1, va.DIN_VARS), dtype=f64),
+        torch.zeros((1, va.N_MED), dtype=f64),
+    )
+    c = vm._constants(spec, f64, "cpu")
+    med = vm._medium(spec, c, torch.tensor([spec.density_multiplier, spec.noise_offset, spec.absorption,
+                                            spec.scattering, spec.brightness_ref], dtype=f64))
+    return count_ops(lambda: va._bwd_step(spec, c, med, lanes))
+
+
+def compare_vol_adjoint(dtype, ops):
+    """K7 against its plain version on phase 14's lanes with seeded
+    cotangents (numpy), both with the march budget cut to
+    VOL_BWD_COMPARE_STEPS samples; then K7 alone at the scene's full budget.
+    The bars are K2's (K2_BARS): d_in per lane against its largest entry,
+    the five medium sums relative."""
+    import numpy as np
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import volumetric_adjoint as va
+    from gr_raytracer_tpu_torch.ops import volumetric_march as vm
+
+    vol_spec, lanes, med = vol_chunk_lanes(dtype)
+    n = lanes[0].shape[0]
+    ct = torch.as_tensor(np.random.default_rng(0).normal(size=(n, 6)), dtype=dtype, device="cuda")
+
+    def cotangents(spec):
+        acc, t_f, _, _ = vm.raymarch_raw(spec, med, *lanes)
+        s_tot = torch.sum(ct[:, :3] * acc, dim=-1)
+        return torch.cat([ct, s_tot[:, None], t_f[:, None]], dim=1).contiguous()
+
+    cut = vol_spec._replace(max_steps=VOL_BWD_COMPARE_STEPS)
+    cts = cotangents(cut)
+    va.vol_march_bwd(cut, med, *lanes, cts)  # first launch: checks the kernel runs
+    torch.cuda.synchronize()
+    cut_ms, got = time_cuda(lambda: va.vol_march_bwd(cut, med, *lanes, cts), reps=2)
+    t0 = time.perf_counter()
+    ref = va.vol_march_bwd_plain(cut, med, *lanes, cts)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_cut = vm.raymarch(cut, *lanes)[1]
+    cts_full = cotangents(vol_spec)
+    full_ms, out = time_cuda(lambda: va.vol_march_bwd(vol_spec, med, *lanes, cts_full), reps=2)
+    n_full = vm.raymarch(vol_spec, *lanes)[1]
+
+    lane = lane_errors(got[0], ref[0])
+    sums = [float(v) for v in got[1].double().sum(0)], [float(v) for v in ref[1].double().sum(0)]
+    sum_err = max(abs(g - r) / max(abs(r), 1e-300) for g, r in zip(*sums))
+    name = str(dtype).replace("torch.", "")
+    lane_tol, share, sum_tol = K2_BARS[name]
+    samples = int(n_full.long().sum())
+    bound_ms, bound_by = raymarch_bound_ms(samples, n, ops, dtype, lane_bytes=33 * lanes[0].element_size())
+    res = {
+        "kernel": "K7", "dtype": name, "lanes": n, "compare_budget": VOL_BWD_COMPARE_STEPS,
+        "full_budget": vol_spec.max_steps, "compare_samples": int(n_cut.long().sum()),
+        "kernel_ms_compare_budget": cut_ms, "plain_ms": plain_ms,
+        "plain_ms_per_sample": plain_ms / max(int(n_cut.max()), 1),
+        "kernel_ms": full_ms, "samples": samples, "samples_per_s": samples / (full_ms / 1e3),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "lanes_within_tol": float((lane <= lane_tol).double().mean()),
+        "lane_rel_err_max": float(lane.max()), "lane_rel_err_q999": float(torch.quantile(lane.double(), 0.999)),
+        "max_abs_err": max(float((g - r).abs().max()) for g, r in zip(got, ref)),
+        "med_sums": sums[0], "med_sums_plain": sums[1], "med_sum_rel_err": sum_err,
+        "finite": all(bool(torch.isfinite(v).all()) for v in out),
+    }
+    res["ok"] = res["lanes_within_tol"] >= share and sum_err <= sum_tol and res["finite"]
+    return res
+
+
+def probe_loss(color):
+    """scripts/grad_scale_probe.py --vol's loss: mean(log1p(max(c, 0))) over
+    the XYZ channels."""
+    import torch
+
+    return torch.mean(torch.log1p(torch.clamp(color[:, :3], min=0.0)))
+
+
+def vol_grad_scene(toml, size, camera):
+    """(scene, spec, x, p): `toml` at size² in float32 with `camera`, budget
+    MAX_STEPS, and its camera rays."""
+    import torch
+
+    from gr_raytracer_tpu_torch import config
+    from gr_raytracer_tpu_torch.rendering import camera as cam
+    from gr_raytracer_tpu_torch.rendering import fast_path
+
+    dt = torch.float32
+    opts = config.RenderOptions(width=size, height=size, max_steps=MAX_STEPS, **camera)
+    scene = config.create_scene(config.load_config(toml), opts, dt, torch.device("cuda"))
+    rr, cc = torch.meshgrid(torch.arange(size, dtype=dt, device="cuda"),
+                            torch.arange(size, dtype=dt, device="cuda"), indexing="ij")
+    x, p = cam.pixel_rays(scene.camera, rr.ravel(), cc.ravel())
+    if not fast_path.supports_vol_diff(scene):
+        fail(f"{os.path.basename(toml)} is not a differentiable volumetric scene")
+    return scene, fast_path.scene_kernel_spec(scene), x, p
+
+
+def vol_value_and_grad(scene, spec, x, p):
+    """One value and gradient of probe_loss over the disc's five medium
+    parameters; returns (loss, {name: gradient}, seconds)."""
+    import torch
+
+    from gr_raytracer_tpu_torch import inverse
+    from gr_raytracer_tpu_torch.ops import volumetric_march as vm
+    from gr_raytracer_tpu_torch.rendering import fast_path
+
+    med = inverse.disc_medium(scene.objects[0]).requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = probe_loss(fast_path.trace_rays_fast_vol_diff(scene, med, x, p, spec).color)
+    (g,) = torch.autograd.grad(loss, med)
+    torch.cuda.synchronize()
+    return float(loss), dict(zip(vm.MED_NAMES, (float(v) for v in g))), time.perf_counter() - t0
+
+
+def vol_fit_phase():
+    """The volumetric gradient path of grad_scale_probe.py --vol on the card
+    (kerr-volumetric-streaky at 256², float32): one value and gradient of
+    its loss over the five medium parameters, then the first VOL_FIT_STEPS
+    steps of its density_multiplier and absorption fit through inverse.fit;
+    returns its summary."""
+    import math
+
+    import torch
+
+    from gr_raytracer_tpu_torch import inverse
+    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+    from gr_raytracer_tpu_torch.ops import volumetric_adjoint as va
+    from gr_raytracer_tpu_torch.ops import volumetric_march as vm
+
+    scene, spec, x, p = vol_grad_scene(VOL_TOML, VOL_FIT_SIZE, VOL_CAMERA_KW)
+    gm.launches = vm.raw_launches = va.launches = 0
+    vm.raw_launch_timer, va.launch_timer = [], []
+    loss, grads, grad_s = vol_value_and_grad(scene, spec, x, p)
+    ms = lambda timer: sum(s.elapsed_time(e) for s, e in timer)
+    vg = {"frame": f"{VOL_FIT_SIZE}x{VOL_FIT_SIZE}", "loss": loss, "grads": grads, "s": grad_s,
+          "k1_launches": gm.launches, "k6_launches": vm.raw_launches, "k7_launches": va.launches,
+          "k6_ms": ms(vm.raw_launch_timer), "k7_ms": ms(va.launch_timer)}
+    print(json.dumps({"value_and_grad": vg}), flush=True)
+    if not all(math.isfinite(v) for v in grads.values()) or not math.isfinite(loss):
+        fail(f"a volumetric gradient is not finite: {vg}")
+    if 0 in (vg["k1_launches"], vg["k6_launches"], vg["k7_launches"]):
+        fail(f"the volumetric gradient launched K1, K6, K7 {vg['k1_launches']}, {vg['k6_launches']}, "
+             f"{vg['k7_launches']} times")
+
+    render = inverse.medium_render(scene, x, p, spec)
+    obj = scene.objects[0]
+    true = (float(obj.density_multiplier), float(obj.absorption))
+    start = (true[0] * VOL_FIT_START[0], true[1] * VOL_FIT_START[1])
+    as_params = lambda dm, ab: {"log_dm": torch.tensor(math.log(dm), dtype=torch.float32, device="cuda"),
+                                "log_ab": torch.tensor(math.log(ab), dtype=torch.float32, device="cuda")}
+    with torch.no_grad():
+        target = render(as_params(*true))
+    torch.cuda.synchronize()
+    rows = []
+    clock = [time.perf_counter()]
+
+    def callback(step, loss, params, grads):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rows.append({
+            "step": step, "loss": loss, "dm": math.exp(float(params["log_dm"].detach())),
+            "ab": math.exp(float(params["log_ab"].detach())), "grads": {k: float(g) for k, g in grads.items()},
+            "s": now - clock[0], "k6_ms": ms(vm.raw_launch_timer), "k7_ms": ms(va.launch_timer),
+        })
+        vm.raw_launch_timer.clear()
+        va.launch_timer.clear()
+        print(json.dumps(rows[-1]), flush=True)
+        clock[0] = time.perf_counter()
+
+    vm.raw_launch_timer.clear()
+    va.launch_timer.clear()
+    _, losses = inverse.fit(
+        render, as_params(*start), target, trainable=("log_dm", "log_ab"), steps=VOL_FIT_STEPS,
+        learning_rate=inverse.cosine_decay_schedule(*VOL_FIT_SCHEDULE), clip_norm=1.0, callback=callback,
+    )
+    launches = {"k1": gm.launches, "k6": vm.raw_launches, "k7": va.launches}
+    vm.raw_launch_timer = va.launch_timer = None
+    split, busy = fit_step_breakdown(lambda prm, mark: render(prm), inverse.image_loss, target,
+                                     as_params(*start))
+    mean = lambda key: sum(r[key] for r in rows) / len(rows)
+    final = (rows[-1]["dm"], rows[-1]["ab"])
+    summary = {
+        "frame": f"{VOL_FIT_SIZE}x{VOL_FIT_SIZE}", "max_steps": MAX_STEPS, "steps": VOL_FIT_STEPS,
+        "schedule": VOL_FIT_SCHEDULE, "true": true, "start": start, "final": final,
+        "loss_first": losses[0], "loss_last": losses[-1], "launches": launches,
+        "s_per_step": mean("s"), "k6_ms_per_step": mean("k6_ms"), "k7_ms_per_step": mean("k7_ms"),
+        "step_breakdown_s": split, "device_busy_share": busy, "value_and_grad": vg,
+    }
+    if not all(math.isfinite(g) for r in rows for g in r["grads"].values()):
+        fail(f"a volumetric fit gradient is not finite: {rows}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"the volumetric fit's loss did not fall: {losses}")
+    for name, got, want, was in zip(("density_multiplier", "absorption"), final, true, start):
+        if not abs(got - want) < abs(was - want):
+            fail(f"the volumetric fit's {name} did not move toward {want}: {was} -> {got}")
+    return summary
+
+
 def main():
+    import math
+
     import numpy as np
     import torch
 
@@ -1115,6 +1460,7 @@ def main():
     from gr_raytracer_tpu_torch import cli
     from gr_raytracer_tpu_torch.ops import cuda_build
     from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+    from gr_raytracer_tpu_torch.ops import volumetric_adjoint as va
     from gr_raytracer_tpu_torch.ops import volumetric_march as vm
     from gr_raytracer_tpu_torch.utils.png import png_decode
 
@@ -1334,7 +1680,44 @@ def main():
         bl_vol = vol_frame_summary(out, png, BL_VOL_FRAME, total_s, ran, "kerr-bl-volumetric-streaky", vol_ops)
     print(json.dumps(bl_vol), flush=True)
 
-    phase("17. kernels")
+    phase("17. K6 against its plain version")
+    raw_marches = {}
+    for dtype in (torch.float32, torch.float64):
+        r = compare_raymarch_raw(dtype, vol_ops)
+        raw_marches[dtype] = r
+        print(json.dumps(r), flush=True)
+        if not r["ok"]:
+            fail(f"K6 disagrees with its plain version or with K5: {r}")
+
+    phase("18. K7 against its plain version")
+    bwd_ops = count_vol_bwd_ops()
+    print(f"operations per sample of the plain backward (forward optics and their VJP, counted): "
+          f"{json.dumps(bwd_ops)}")
+    vol_sweeps = {}
+    for dtype in (torch.float64, torch.float32):
+        r = compare_vol_adjoint(dtype, bwd_ops)
+        vol_sweeps[dtype] = r
+        print(json.dumps(r), flush=True)
+        if not r["ok"]:
+            fail(f"K7 disagrees with its plain version: {r}")
+
+    phase("19. volumetric gradient path: the 256² medium fit")
+    vol_fit = vol_fit_phase()
+    print(json.dumps(vol_fit), flush=True)
+
+    phase("20. BL volumetric gradient: kerr-bl-volumetric-streaky at 128²")
+    scene, spec, x, p = vol_grad_scene(BL_VOL_TOML, BL_VOL_GRAD_SIZE, BL_CAMERA_KW)
+    gm.bl_launches = vm.raw_launches = va.launches = 0
+    loss, grads, grad_s = vol_value_and_grad(scene, spec, x, p)
+    bl_grad = {"frame": f"{BL_VOL_GRAD_SIZE}x{BL_VOL_GRAD_SIZE}", "loss": loss, "grads": grads, "s": grad_s,
+               "k3_launches": gm.bl_launches, "k6_launches": vm.raw_launches, "k7_launches": va.launches}
+    print(json.dumps(bl_grad), flush=True)
+    if not all(math.isfinite(v) and v != 0.0 for v in grads.values()):
+        fail(f"a BL volumetric gradient is not finite or is zero: {bl_grad}")
+    if 0 in (bl_grad["k3_launches"], bl_grad["k6_launches"], bl_grad["k7_launches"]):
+        fail(f"the BL volumetric gradient did not launch K3, K6 and K7: {bl_grad}")
+
+    phase("21. kernels")
     prod = variants[(torch.float32, False)]
     sweep = sweeps[torch.float32]
     bl_prod = bl_variants[(torch.float32, False)]
@@ -1345,9 +1728,10 @@ def main():
         "route": "cuda",
         "source": "gr_raytracer_tpu_torch/csrc/kerr_rk4_march.cu",
         "replaces": "gr_raytracer_tpu/ops/geodesic_pallas.py:790",
-        "launches": launches + fit["k1_launches"] + vol_main["k1_launches"],
+        "launches": launches + fit["k1_launches"] + vol_main["k1_launches"] + vol_fit["launches"]["k1"],
         "launches_by_path": {"render": launches, "fit": fit["k1_launches"],
-                             "render_volumetric": vol_main["k1_launches"]},
+                             "render_volumetric": vol_main["k1_launches"],
+                             "fit_volumetric": vol_fit["launches"]["k1"]},
         "max_abs_err": max(prod["max_abs_err"], variants[(torch.float32, True)]["max_abs_err"]),
         "ms": prod["kernel_ms"],
         "plain_ms": prod["plain_ms"],
@@ -1371,9 +1755,11 @@ def main():
         "route": "cuda",
         "source": "gr_raytracer_tpu_torch/csrc/kerr_bl_march.cu",
         "replaces": "gr_raytracer_tpu/ops/geodesic_pallas.py:1235",
-        "launches": bl_render_launches + sch_launches + bl_fit["k3_launches"] + bl_vol["k3_launches"],
+        "launches": (bl_render_launches + sch_launches + bl_fit["k3_launches"] + bl_vol["k3_launches"]
+                     + bl_grad["k3_launches"]),
         "launches_by_path": {"render_kerr_bl": bl_render_launches, "render_schwarzschild": sch_launches,
-                             "fit": bl_fit["k3_launches"], "render_bl_volumetric": bl_vol["k3_launches"]},
+                             "fit": bl_fit["k3_launches"], "render_bl_volumetric": bl_vol["k3_launches"],
+                             "grad_bl_volumetric": bl_grad["k3_launches"]},
         "max_abs_err": max(bl_prod["max_abs_err"], bl_variants[(torch.float32, True)]["max_abs_err"]),
         "ms": bl_prod["kernel_ms"],
         "plain_ms": bl_prod["plain_ms"],
@@ -1407,6 +1793,38 @@ def main():
         "ms_at_plain_budget": raymarch["kernel_ms_compare_budget"],
         "bound_ms": raymarch["bound_ms"],
         "bound_by": raymarch["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "vol_raymarch_raw",
+        "route": "cuda",
+        "source": "gr_raytracer_tpu_torch/csrc/vol_raymarch.cu",
+        "replaces": "gr_raytracer_tpu/ops/volumetric_adjoint.py:356",
+        "launches": vol_fit["launches"]["k6"] + bl_grad["k6_launches"],
+        "launches_by_path": {"fit_volumetric": vol_fit["launches"]["k6"],
+                             "grad_bl_volumetric": bl_grad["k6_launches"]},
+        "max_abs_err": raw_marches[torch.float32]["max_abs_err"],
+        "ms": raw_marches[torch.float32]["kernel_ms"],
+        "plain_ms": raw_marches[torch.float32]["plain_ms"],
+        "plain_budget": VOL_COMPARE_STEPS,
+        "ms_at_plain_budget": raw_marches[torch.float32]["kernel_ms_compare_budget"],
+        "bound_ms": raw_marches[torch.float32]["bound_ms"],
+        "bound_by": raw_marches[torch.float32]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "vol_adjoint",
+        "route": "cuda",
+        "source": "gr_raytracer_tpu_torch/csrc/vol_adjoint.cu",
+        "replaces": "gr_raytracer_tpu/ops/volumetric_adjoint.py:395",
+        "launches": vol_fit["launches"]["k7"] + bl_grad["k7_launches"],
+        "launches_by_path": {"fit_volumetric": vol_fit["launches"]["k7"],
+                             "grad_bl_volumetric": bl_grad["k7_launches"]},
+        "max_abs_err": vol_sweeps[torch.float32]["max_abs_err"],
+        "ms": vol_sweeps[torch.float32]["kernel_ms"],
+        "plain_ms": vol_sweeps[torch.float32]["plain_ms"],
+        "plain_budget": VOL_BWD_COMPARE_STEPS,
+        "ms_at_plain_budget": vol_sweeps[torch.float32]["kernel_ms_compare_budget"],
+        "bound_ms": vol_sweeps[torch.float32]["bound_ms"],
+        "bound_by": vol_sweeps[torch.float32]["bound_by"],
         "library_ms": None,
     }]
     print(f"wall {time.perf_counter() - t_all:.1f}s")

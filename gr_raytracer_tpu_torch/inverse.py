@@ -4,7 +4,9 @@ of gr_raytracer_tpu/inverse.py).
 The whole pipeline (camera, march, shading, fold) is differentiable on the
 kernel path (rendering/fast_path.trace_rays_fast_diff), so a scalar image
 loss drives torch.autograd on physical parameters: spin, camera pose, disc
-temperature.
+temperature. On a volumetric scene the raymarch is differentiable in the
+five medium parameters (fast_path.trace_rays_fast_vol_diff;
+`medium_render` fits density_multiplier and absorption).
 
 Loss design: the renderer returns HDR CIE XYZ radiance spanning ~6 decades.
 A plain L2 loss is dominated by the brightest pixels; log1p keeps relative
@@ -62,6 +64,34 @@ def pyramid_image_loss(rows: int, cols: int, pools=(1, 4, 16)):
         return sum(terms) / len(pools)
 
     return loss
+
+
+def disc_medium(obj):
+    """The five medium parameters of a VolumetricDisc as one [5] tensor
+    (volumetric_march.MED_NAMES): density_multiplier, noise_offset,
+    absorption, scattering, brightness_reference_temperature."""
+    return torch.stack([
+        obj.density_multiplier, obj.noise_offset, obj.absorption, obj.scattering,
+        obj.brightness_reference_temperature,
+    ]).detach()
+
+
+def medium_render(scene, positions, momenta, spec=None):
+    """render_fn(params) for `fit` on a volumetric scene with the
+    reparametrisation of scripts/grad_scale_probe.py --vol: density_multiplier
+    = exp(params["log_dm"]), absorption = exp(params["log_ab"]), the other
+    three at the disc's own values."""
+    from gr_raytracer_tpu_torch.rendering import fast_path
+
+    base = disc_medium(scene.objects[0]).to(positions.dtype)
+    if spec is None:
+        spec = fast_path.scene_kernel_spec(scene)
+
+    def render(params):
+        med = torch.stack([torch.exp(params["log_dm"]), base[1], torch.exp(params["log_ab"]), base[3], base[4]])
+        return fast_path.trace_rays_fast_vol_diff(scene, med, positions, momenta, spec).color
+
+    return render
 
 
 def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0):

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
 )
 SOURCES = (
     "kerr_rk4_march.cu", "kerr_ks_adjoint.cu", "kerr_bl_march.cu", "kerr_bl_adjoint.cu",
-    "vol_raymarch.cu",
+    "vol_raymarch.cu", "vol_adjoint.cu",
 )
 
 _lock = threading.Lock()

@@ -12,7 +12,9 @@ object is a volumetric disc goes through `trace_rays_fast_vol`: the
 geometric march, the compaction of its volumetric event slots, and one
 raymarch K5 over them (ops/volumetric_march.py). Nothing here synchronizes
 with the card except that compaction (one count per chunk), so chunks of
-rays can be queued ahead of the host.
+rays can be queued ahead of the host. `trace_rays_fast_vol_diff` is the
+differentiable form of that path: gradients flow from the colors to the
+five medium parameters through K6 and K7 (ops/volumetric_adjoint.py).
 """
 
 from __future__ import annotations
@@ -346,3 +348,47 @@ def trace_rays_fast_diff(scene, positions, momenta, spec=None, k_ckpt=None):
     y_f, ev_data, stop, steps, ev_kind, ev_count, ev_ovf = out
     res = integ.IntegrationResult(y_f, stop, steps, ev_kind, ev_data, ev_count, ev_ovf)
     return _finish_samples(scene, res, freq, solver, inverse, first_event_only=True)
+
+
+def supports_vol_diff(scene) -> bool:
+    """Reverse mode through the raymarch (ops/volumetric_adjoint.py) covers
+    the scenes of `trace_rays_fast_vol`: one z-axis volumetric disc with a
+    raymarch-supported texture and temperature on Kerr, KerrBL or
+    Schwarzschild."""
+    return (
+        isinstance(scene.geometry, (Kerr, KerrBL, Schwarzschild))
+        and len(scene.objects) == 1
+        and isinstance(scene.objects[0], VolumetricDisc)
+        and scene.objects[0].axis_is_z()
+        and vm.supports(scene.objects[0], scene.geometry)
+    )
+
+
+def trace_rays_fast_vol_diff(scene, med, positions, momenta, spec=None) -> scn.RaySamples:
+    """Differentiable `trace_rays_fast_vol` on supports_vol_diff scenes:
+    gradients flow from the colors to `med` ([5] of the rays' dtype and
+    device: volumetric_march.MED_NAMES, the medium the raymarch reads in
+    place of the disc's own five values) through the raymarch K6 and its
+    backward K7. The geometric pass runs without gradient (the bounding-
+    volume crossings do not move with the medium), then the compaction of
+    the volumetric slots (`volumetric_lanes`, to their exact count: JAX's
+    fixed bucket, its overflow flag and its parked padding lanes have no
+    counterpart), the differentiable march, `combine_alpha`, the scatter
+    and the alpha fold."""
+    from gr_raytracer_tpu_torch.ops import volumetric_adjoint as va
+
+    if spec is None:
+        if not supports_vol_diff(scene):
+            raise ValueError("scene shape unsupported by the differentiable volumetric path")
+        spec = scene_kernel_spec(scene)
+    with torch.no_grad():
+        g = trace_geometric_fast(scene, positions, momenta, spec)
+        n, k = g.ev_kind.shape
+        slots, lanes = volumetric_lanes(scene.objects[0], g.ev_kind, g.ev_data, g.observer_energy, g.p_t,
+                                        g.p_phi)
+    colors = torch.zeros((n * k, 4), dtype=g.ev_data.dtype, device=g.ev_data.device)
+    if slots.numel():
+        acc, t_fin, ws, wt = va.make_vol_march_diff(spec.vol_spec)(med, *lanes)
+        colors = colors.index_put((slots,), va.combine_alpha(acc, t_fin, ws, wt))
+    color, ray_class = scn.fold_samples(scene, g.ev_kind, colors.reshape(n, k, 4), g.stop_code, g.celestial)
+    return scn.RaySamples(color, ray_class, g.stop_code, g.steps, g.ev_overflow)
