@@ -32,7 +32,7 @@ non-zero on failure:
      Mino budget of 40,000 (nominal 20,000): float32 without Kahan (the
      main path's configuration) over the whole budget, float32 with Kahan
      and float64 with and without over their first 4,000 steps (the plain
-     march costs ~4.5 ms an iteration whatever the lane count; each
+     march costs milliseconds an iteration whatever the lane count; each
      kernel is timed over the whole budget); then K3
      with checkpoints (every 128 steps) on the 16,384 rays of the BL fit
      frame, float32 (whole budget) and float64 (first 4,000 steps);
@@ -79,9 +79,32 @@ non-zero on failure:
      toward (500, 0.3); where a step's time goes;
  20. one value and gradient on kerr-bl-volumetric-streaky at 128² through
      K3, K6 and K7: finite and nonzero;
- 21. one JSON line {"kernels": [...]} with each kernel's launches, error
+ 21. K1 with sphere events against its plain version, float32 and
+     float64, over the whole budget: the middle 65,536-ray chunk of
+     kerr-sphere.toml at 1000² (r_s = 0: straight chords) and of the disc
+     and sphere scene of tests/test_pallas.py::test_kerr_sphere_kernel_
+     parity at 1000² (its camera, budget 3,000, sky radius 40); every
+     compared chunk must hold sphere events;
+ 22. K3 with sphere events against its plain version, float32 and float64:
+     the last 65,536 pixels of schwarzschild.toml at 1000² (where a CPU
+     preview found its sphere's image) over their first 1,000 steps,
+     and the middle chunk of the scene of tests/test_pallas.py::
+     test_bl_kernel_sphere_parity at 1000² (its camera and budget), float32
+     over the whole budget and float64 over its first 4,000 steps;
+ 23. the sphere path: the CLI `render` of schwarzschild.toml at 1000×1000,
+     the command of docs/examples.md (through K3; the frame must hold disc
+     hits);
+ 24. the CLI `render` of kerr-sphere.toml at 1000×1000 (K1, r_s = 0; the
+     frame must hold sphere hits);
+ 25. the CLI `render` of schwarzschild-sphere.toml at 512×512 (K3 at
+     r_s = 0; sphere hits): each of 23-25 prints its seconds, scene build,
+     passes, the kernel's launches, ms and share of the frame, and the rays
+     whose first event is a sphere or a disc;
+ 26. phase 19's value and gradient in float64, beside the float32 one and
+     the JAX package's (docs/gradient_bench.json "volumetric");
+ 27. one JSON line {"kernels": [...]} with each kernel's launches, error
      against its plain version, times and bound;
- 22. the last line: {"ok": true, "device": {...}}.
+ 28. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -175,6 +198,70 @@ VOL_FIT_STEPS = 20
 VOL_FIT_SCHEDULE = (5e-2, 60, 0.02)
 VOL_FIT_START = (0.6, 2.0)  # × the true density_multiplier and absorption
 BL_VOL_GRAD_SIZE = 128
+# The sphere paths: docs/examples.md's schwarzschild.toml command (1000²,
+# the BL camera), kerr-sphere.toml at 1000² (the Kerr camera) and
+# schwarzschild-sphere.toml at 512² (the BL camera); both flat scenes have
+# r_s = 0.
+SCHWARZSCHILD_TOML = os.path.join(HERE, "scene-definitions", "schwarzschild.toml")
+KERR_SPHERE_TOML = os.path.join(HERE, "scene-definitions", "kerr-sphere.toml")
+SCHWARZSCHILD_SPHERE_TOML = os.path.join(HERE, "scene-definitions", "schwarzschild-sphere.toml")
+SPHERE_SMALL_FRAME = 512
+# schwarzschild.toml's sphere (R = 2 at z = 20) is off the axis of view:
+# the frame's middle chunk holds none of its events. A float64 preview on
+# the CPU found its image in a thin band of central columns near the
+# frame's top and bottom edges, most of it in the frame's last 65,536
+# pixels, the chunk compared here.
+SCHWARZSCHILD_CHUNK_FIRST = FRAME * FRAME - N_RAYS
+# Its comparison runs the first 1,000 steps: the chunk's sphere events all
+# come within them (a 4,000-step comparison records the same ones), and
+# every plain iteration of the chunk costs the same whatever it records.
+SCHWARZSCHILD_COMPARE_ATTEMPTS = 1000
+# The disc and sphere scenes of tests/test_pallas.py (test_kerr_sphere_
+# kernel_parity and test_bl_kernel_sphere_parity): a disc 3-5 and a sphere
+# of radius 2 at the origin around a Kerr hole (r_s = 0.4, a = 0.15) or a
+# Schwarzschild one (r_s = 0.5), checker textures; their cameras and their
+# budget of 3,000 steps inside a sky sphere of radius 40.
+SPHERE_TEST_SCENE = """
+celestial_temperature = 0.0
+[celestial_texture.Checker]
+beaming_exponent = 0.0
+width = 18.0
+height = 9.0
+color1 = [40, 40, 120]
+color2 = [5, 5, 20]
+[geometry_type.{geometry}]
+radius = {radius}
+{spin}horizon_epsilon = 1e-3
+[[objects]]
+[objects.Disc]
+inner_radius = 3.0
+outer_radius = 5.0
+temperature = 2000.0
+[objects.Disc.texture.Checker]
+beaming_exponent = 0.0
+width = 6.0
+height = 6.0
+color1 = [255, 120, 0]
+color2 = [120, 40, 0]
+[[objects]]
+[objects.Sphere]
+radius = 2.0
+position = [0.0, 0.0, 0.0]
+temperature = 2000.0
+[objects.Sphere.texture.Checker]
+beaming_exponent = 0.0
+width = 6.0
+height = 6.0
+color1 = [255, 0, 0]
+color2 = [90, 0, 0]
+"""
+SPHERE_TEST_SCENES = {
+    "kerr-sphere-test-scene.toml": SPHERE_TEST_SCENE.format(geometry="Kerr", radius=0.4, spin="a = 0.15\n"),
+    "schwarzschild-sphere-test-scene.toml": SPHERE_TEST_SCENE.format(geometry="Schwarzschild", radius=0.5,
+                                                                      spin=""),
+}
+SPHERE_TEST_OPTIONS = dict(max_steps=3000, max_radius=40.0)
+KERR_CAMERA_KW = dict(camera_position=(-10.0, 0.0, -0.5), theta=1.52, psi=-1.57)
 FP32_LANES_PER_SM = 128  # Hopper: FP32 units per SM
 FP64_LANES_PER_SM = 64
 INT32_LANES_PER_SM = 64  # Hopper: INT32 units per SM
@@ -186,8 +273,11 @@ def fail(msg):
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name} (t = {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def nvidia_smi(query):
@@ -247,10 +337,10 @@ def _one_lane():
     return torch.tensor([[0.0, 8.0, 3.0, 0.5, -1.0, 0.9, 0.2, -0.1]], dtype=torch.float64).T
 
 
-def count_step_flops():
+def count_step_flops(spheres=()):
     """Arithmetic operations of one RK4 step of the march, per ray, counted
-    on the plain step (count_ops's "float" class); event stores are rare
-    and not counted."""
+    on the plain step (count_ops's "float" class) with the sphere candidate
+    tests of `spheres`; event stores are rare and not counted."""
     import torch
 
     from gr_raytracer_tpu_torch.ops import geodesic_march as gm
@@ -270,7 +360,7 @@ def count_step_flops():
         ev_data=torch.zeros((1, 8, 12), dtype=torch.float64), ev_count=torch.zeros(1, dtype=torch.int32),
         ev_ovf=torch.zeros(1, dtype=torch.bool), comp=torch.zeros_like(y),
     )
-    return count_ops(lambda: gm._plain_step(c, lanes, ()))["float"]
+    return count_ops(lambda: gm._plain_step(c, lanes, (), spheres))["float"]
 
 
 def count_vjp_flops():
@@ -321,10 +411,12 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
-def chunk_inputs(dtype, toml=KERR_TOML, size=FRAME, camera=None):
+def chunk_inputs(dtype, toml=KERR_TOML, size=FRAME, camera=None, first=None, options=None):
     """(scene, spec, y0, freq, solver, inverse) for the middle CLI chunk of
     the size×size frame of `toml` (default: kerr.toml at 1000², the README
-    camera), cost-sorted as the main path sorts it."""
+    camera), or the chunk that starts at pixel `first`, cost-sorted as the
+    main path sorts it. `options` override the RenderOptions (budget
+    MAX_STEPS, the CLI's sky radius)."""
     import numpy as np
     import torch
 
@@ -333,10 +425,10 @@ def chunk_inputs(dtype, toml=KERR_TOML, size=FRAME, camera=None):
     from gr_raytracer_tpu_torch.rendering import fast_path
 
     camera = camera or dict(camera_position=(-10.0, 0.0, -0.5), theta=1.52, psi=-1.57)
-    opts = config.RenderOptions(width=size, height=size, max_steps=MAX_STEPS, **camera)
+    opts = config.RenderOptions(width=size, height=size, **{"max_steps": MAX_STEPS, **(options or {})}, **camera)
     scene = config.create_scene(config.load_config(toml), opts, dtype, torch.device("cuda"))
     n = min(N_RAYS, size * size)
-    first = size * size // 2 - n // 2
+    first = size * size // 2 - n // 2 if first is None else first
     flat = np.arange(first, first + n)
     rows = torch.as_tensor(flat // size, dtype=dtype, device="cuda")
     cols = torch.as_tensor(flat % size, dtype=dtype, device="cuda")
@@ -357,12 +449,12 @@ def lane_relative_error(ref, got):
 
 
 def compare_march(dtype, compensated, flops_per_step, bl=False, attempts=None, toml=None, size=FRAME,
-                  camera=None):
+                  camera=None, first=None, options=None):
     """K1 (K3 with `bl`) against its plain version on the same inputs, the
-    main path's middle chunk of `toml` (kerr.toml, kerr-bl.toml) at its
-    budget. The kernel is timed over the whole budget; `attempts` bounds
-    the iterations of the comparison (unfinished lanes stay RUNNING).
-    Returns a result dict."""
+    main path's middle chunk of `toml` (kerr.toml, kerr-bl.toml; `first`
+    and `options` as chunk_inputs takes them) at its budget. The kernel is
+    timed over the whole budget; `attempts` bounds the iterations of the
+    comparison (unfinished lanes stay RUNNING). Returns a result dict."""
     import torch
 
     from gr_raytracer_tpu_torch.ops import geodesic_march as gm
@@ -370,19 +462,21 @@ def compare_march(dtype, compensated, flops_per_step, bl=False, attempts=None, t
 
     toml = toml or (KERR_BL_TOML if bl else KERR_TOML)
     scene, spec, y0, freq, solver, inverse = chunk_inputs(
-        dtype, toml, size, camera or (BL_CAMERA_KW if bl else None))
+        dtype, toml, size, camera or (BL_CAMERA_KW if bl else None), first, options)
+    budget = scene.integration.max_steps
     if bl:
         consts = (solver.e.contiguous(), solver.l_z.contiguous(), solver.q.contiguous())
         args = (spec.radius, spec.a, spec.horizon_epsilon, y0, *consts)
-        kw = dict(h0=0.01, max_steps=2 * MAX_STEPS, max_radius=scene.integration.max_radius,
-                  discs=spec.discs, vols=spec.vols, opaque_stop=spec.opaque, compensated=compensated)
+        kw = dict(h0=0.01, max_steps=2 * budget, max_radius=scene.integration.max_radius,
+                  discs=spec.discs, spheres=spec.spheres, vols=spec.vols, opaque_stop=spec.opaque,
+                  compensated=compensated)
         kernel, plain = gm.kerr_bl_rk4_march, gm.march_bl_plain
     else:
         consts = ()
         args = (spec.radius, spec.a, spec.horizon_epsilon, y0)
-        kw = dict(h0=1.0, max_steps=MAX_STEPS, max_radius=scene.integration.max_radius,
-                  discs=spec.discs, vols=spec.vols, r_safe=spec.r_safe, opaque_stop=spec.opaque,
-                  compensated=compensated)
+        kw = dict(h0=1.0, max_steps=budget, max_radius=scene.integration.max_radius,
+                  discs=spec.discs, spheres=spec.spheres, vols=spec.vols, r_safe=spec.r_safe,
+                  opaque_stop=spec.opaque, compensated=compensated)
         kernel, plain = gm.kerr_rk4_march, gm.march_plain
     full = kernel(*args, **kw)  # first launch: checks the kernel runs
     torch.cuda.synchronize()
@@ -408,6 +502,8 @@ def compare_march(dtype, compensated, flops_per_step, bl=False, attempts=None, t
         "bit_identical": all(eq(g, r) for g, r in zip(got, ref)),
         "stops": torch.bincount(stop_g, minlength=8).tolist(),
         "events": int(count_g.long().sum()), "overflowed": int(ovf_g.sum()),
+        "events_by_kind": torch.bincount(kind_g[kind_g >= 0].long()).tolist(),
+        "sphere_events": sum(int((kind_g == s.kind).sum()) for s in spec.spheres),
         "max_steps_taken": int(full[2].max()), "sum_steps": int(full[2].long().sum()),
         "steps_equal_on_agreeing": float((steps_g == steps_r)[same].double().mean()),
     }
@@ -775,10 +871,10 @@ def _bl_one_lane():
     return torch.tensor([[0.0, 8.0, 1.4, 0.5, -30.0, 0.9, 0.0, 0.0]], dtype=torch.float64).T
 
 
-def count_bl_step_flops():
+def count_bl_step_flops(spheres=()):
     """Arithmetic operations of one Mino-time RK4 step of the BL march, per
-    ray, counted on the plain step (count_ops's "float" class); event
-    stores are rare and not counted."""
+    ray, counted on the plain step (count_ops's "float" class) with the
+    near tests of `spheres`; event stores are rare and not counted."""
     import math
 
     import torch
@@ -794,7 +890,7 @@ def count_bl_step_flops():
         y, torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
         *gm._event_buffers(1, f64, "cpu"), torch.zeros_like(y), one(1.0), one(2.0), one(5.0), one(1.0),
     )
-    return count_ops(lambda: gm._bl_plain_step(c, lanes, ()))["float"]
+    return count_ops(lambda: gm._bl_plain_step(c, lanes, (), spheres))["float"]
 
 
 def count_bl_vjp_flops():
@@ -865,6 +961,35 @@ def cli_render(toml, size, camera, png, counters):
         kernels[label] = (getattr(module, name), sum(s.elapsed_time(e) for s, e in getattr(module, timer)))
         setattr(module, timer, None)
     return out, total_s, kernels
+
+
+class Slot0Kinds:
+    """Counts the slot-0 event kinds of every ray the kernel path shades
+    (pass 1 and AA) by wrapping fast_path._finish_samples; the counts stay
+    on the card until read."""
+
+    def __enter__(self):
+        import torch
+
+        from gr_raytracer_tpu_torch.rendering import fast_path
+
+        self.module, self.inner = fast_path, fast_path._finish_samples
+        self.counts = None
+
+        def finish(scene, res, *args, **kwargs):
+            kinds = torch.bincount(res.ev_kind[:, 0].long() + 1, minlength=len(scene.objects) + 1)
+            self.counts = kinds if self.counts is None else self.counts + kinds
+            return self.inner(scene, res, *args, **kwargs)
+
+        fast_path._finish_samples = finish
+        return self
+
+    def __exit__(self, *exc):
+        self.module._finish_samples = self.inner
+
+    def by_kind(self):
+        """[rays with no event, rays whose slot 0 is object 0, object 1, ...]."""
+        return [] if self.counts is None else self.counts.tolist()
 
 
 def check_frame(out, png, size, codes, what):
@@ -1321,16 +1446,16 @@ def probe_loss(color):
     return torch.mean(torch.log1p(torch.clamp(color[:, :3], min=0.0)))
 
 
-def vol_grad_scene(toml, size, camera):
-    """(scene, spec, x, p): `toml` at size² in float32 with `camera`, budget
-    MAX_STEPS, and its camera rays."""
+def vol_grad_scene(toml, size, camera, dt=None):
+    """(scene, spec, x, p): `toml` at size² in `dt` (float32) with `camera`,
+    budget MAX_STEPS, and its camera rays."""
     import torch
 
     from gr_raytracer_tpu_torch import config
     from gr_raytracer_tpu_torch.rendering import camera as cam
     from gr_raytracer_tpu_torch.rendering import fast_path
 
-    dt = torch.float32
+    dt = dt or torch.float32
     opts = config.RenderOptions(width=size, height=size, max_steps=MAX_STEPS, **camera)
     scene = config.create_scene(config.load_config(toml), opts, dt, torch.device("cuda"))
     rr, cc = torch.meshgrid(torch.arange(size, dtype=dt, device="cuda"),
@@ -1441,6 +1566,153 @@ def vol_fit_phase():
         if not abs(got - want) < abs(was - want):
             fail(f"the volumetric fit's {name} did not move toward {want}: {was} -> {got}")
     return summary
+
+
+def sphere_march_phases():
+    """Phases 21 and 22: K1 and K3 with sphere events against their plain
+    versions; returns {(kernel, chunk, dtype): result}."""
+    import math
+
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+
+    phase("21. K1 with sphere events against its plain version")
+    sphere_marches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        test_tomls = {}
+        for name, text in SPHERE_TEST_SCENES.items():
+            test_tomls[name] = os.path.join(tmp, name)
+            with open(test_tomls[name], "w") as f:
+                f.write(text)
+        # The step's operations with the scene's one sphere's candidate test.
+        one_sphere = (gm.SphereSpec(2.0, 0.0, 0.0, 0.0, 1),)
+        sphere_flops = count_step_flops(one_sphere)
+        bl_sphere_flops = count_bl_step_flops(one_sphere)
+        print(f"flops per ray-step with one sphere (plain step, counted): K1 {sphere_flops}, K3 {bl_sphere_flops}")
+        k1_chunks = (("kerr-sphere.toml", dict(toml=KERR_SPHERE_TOML, camera=KERR_CAMERA_KW)),
+                     ("test scene", dict(toml=test_tomls["kerr-sphere-test-scene.toml"], camera=KERR_CAMERA_KW,
+                                         options=SPHERE_TEST_OPTIONS)))
+        for label, chunk in k1_chunks:
+            for dtype in (torch.float32, torch.float64):
+                r = compare_march(dtype, False, sphere_flops, **chunk)
+                sphere_marches[("K1", label, dtype)] = r
+                print(json.dumps(r), flush=True)
+                if not (r["ok"] and r["sphere_events"] > 0):
+                    fail(f"K1 with sphere events disagrees with its plain version or saw no sphere: {r}")
+
+        phase("22. K3 with sphere events against its plain version")
+        # schwarzschild.toml's chunk compares its first
+        # SCHWARZSCHILD_COMPARE_ATTEMPTS steps, the test scene's f32 variant
+        # its whole budget and its f64 one its first BL_COMPARE_ATTEMPTS.
+        sch_camera = dict(BL_CAMERA_KW, theta=-math.pi)
+        k3_chunks = (("schwarzschild.toml", dict(toml=SCHWARZSCHILD_TOML, camera=BL_CAMERA_KW,
+                                                  first=SCHWARZSCHILD_CHUNK_FIRST)),
+                     ("test scene", dict(toml=test_tomls["schwarzschild-sphere-test-scene.toml"], camera=sch_camera,
+                                         options=SPHERE_TEST_OPTIONS)))
+        for label, chunk in k3_chunks:
+            for dtype in (torch.float32, torch.float64):
+                if label == "test scene":
+                    attempts = None if dtype == torch.float32 else BL_COMPARE_ATTEMPTS
+                else:
+                    attempts = SCHWARZSCHILD_COMPARE_ATTEMPTS
+                r = compare_march(dtype, False, bl_sphere_flops, bl=True, attempts=attempts, **chunk)
+                sphere_marches[("K3", label, dtype)] = r
+                print(json.dumps(r), flush=True)
+                if not (r["ok"] and r["sphere_events"] > 0):
+                    fail(f"K3 with sphere events disagrees with its plain version or saw no sphere: {r}")
+
+    return sphere_marches
+
+
+def sphere_render_phases():
+    """Phases 23-25: the CLI renders of the sphere scenes; returns {scene
+    file: summary}."""
+    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+
+    sphere_renders = {}
+    for number, (name, toml, size, camera, label) in enumerate((
+        ("schwarzschild.toml", SCHWARZSCHILD_TOML, FRAME, BL_CAMERA, "K3"),
+        ("kerr-sphere.toml", KERR_SPHERE_TOML, FRAME, CAMERA, "K1"),
+        ("schwarzschild-sphere.toml", SCHWARZSCHILD_SPHERE_TOML, SPHERE_SMALL_FRAME, BL_CAMERA, "K3"),
+    ), start=23):
+        phase(f"{number}. sphere path: CLI render of {name}")
+        counter = ("K3", gm, "bl_launches") if label == "K3" else ("K1", gm, "launches")
+        with tempfile.TemporaryDirectory() as tmp, Slot0Kinds() as slot0:
+            png = os.path.join(tmp, name.replace(".toml", ".png"))
+            out, total_s, ran = cli_render(toml, size, camera, png, (counter,))
+            # Flat scenes (r_s = 0) have no horizon.
+            codes = (1, 2, 7) if name == "schwarzschild.toml" else (2, 7)
+            summary = check_frame(out, png, size, codes, name)
+        k_launches, k_ms = ran[label]
+        none, disc_hits, sphere_hits = slot0.by_kind()
+        summary.update({"scene": name, "max_steps": MAX_STEPS, "total_s": total_s,
+                        "scene_build_s": out.timings["scene_build"], "write_s": out.timings["write"],
+                        "kernel": label, "launches": k_launches, "kernel_ms": k_ms,
+                        "kernel_share": k_ms / 1e3 / total_s, "slot0_sphere_hits": sphere_hits,
+                        "slot0_disc_hits": disc_hits, "slot0_no_event": none})
+        sphere_renders[name] = summary
+        print(json.dumps(summary), flush=True)
+        if k_launches == 0:
+            fail(f"the {name} render launched {label} no time")
+        if (disc_hits if name == "schwarzschild.toml" else sphere_hits) == 0:
+            fail(f"the {name} frame holds no {'disc' if name == 'schwarzschild.toml' else 'sphere'} hit: {summary}")
+
+    return sphere_renders
+
+
+def f64_gradient_phase(vol_fit):
+    """Phase 26: phase 19's value and gradient in float64 beside its
+    float32 one (`vol_fit`) and the JAX package's; returns the summary."""
+    import math
+
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import volumetric_march as vm
+
+    phase("26. the volumetric value and gradient of phase 19 in float64")
+    scene, spec, x, p = vol_grad_scene(VOL_TOML, VOL_FIT_SIZE, VOL_CAMERA_KW, torch.float64)
+    loss64, grads64, s64 = vol_value_and_grad(scene, spec, x, p)
+    with open(os.path.join(HERE, "docs", "gradient_bench.json")) as f:
+        jax_tpu = json.load(f)["volumetric"]
+    f32 = vol_fit["value_and_grad"]
+    grad64 = {
+        "frame": f"{VOL_FIT_SIZE}x{VOL_FIT_SIZE}", "s": s64,
+        "loss": {"f64": loss64, "f32": f32["loss"], "jax_tpu_f32": jax_tpu["loss"]},
+        "grads": {name: {"f64": grads64[name], "f32": f32["grads"][name], "jax_tpu_f32": jax_tpu["grads"][name],
+                         "f64_over_jax": grads64[name] / jax_tpu["grads"][name]} for name in vm.MED_NAMES},
+    }
+    # Where the two types part: the forward frame of each (no gradient),
+    # its volumetric lanes, samples and loss, and the pixels' agreement.
+    from gr_raytracer_tpu_torch.rendering import fast_path
+
+    frames = {}
+    with torch.no_grad():
+        for dt in (torch.float32, torch.float64):
+            sc, sp, xx, pp = vol_grad_scene(VOL_TOML, VOL_FIT_SIZE, VOL_CAMERA_KW, dt)
+            vt = fast_path.trace_rays_fast_vol(sc, xx, pp, sp)
+            frames[dt] = vt.samples
+            # Lanes whose exit from the bounding volume is found at their
+            # entry point (within 1e-6): they march no sample.
+            g = fast_path.trace_geometric_fast(sc, xx, pp, sp)
+            _, lanes = fast_path.volumetric_lanes(sc.objects[0], g.ev_kind, g.ev_data, g.observer_energy, g.p_t,
+                                                  g.p_phi)
+            grad64.setdefault("frames", {})[str(dt).replace("torch.", "")] = {
+                "loss": float(probe_loss(vt.samples.color)), "vol_lanes": vt.lanes, "samples": int(vt.marched),
+                "emitting": int(vt.emitting), "exit_at_entry": int((lanes[6] < 1e-6).sum()),
+                "stops": torch.bincount(vt.samples.stop_code, minlength=8).tolist(),
+            }
+    tone = lambda c: (c[:, :3] / (1.0 + c[:, :3])).double()
+    diff = (tone(frames[torch.float32].color) - tone(frames[torch.float64].color)).abs().amax(dim=1)
+    grad64["pixels"] = {
+        "within_1e-3": float((diff <= 1e-3).double().mean()), "q50": float(diff.quantile(0.5)),
+        "q99": float(diff.quantile(0.99)), "max": float(diff.max()),
+        "same_stop": float((frames[torch.float32].stop_code == frames[torch.float64].stop_code).double().mean()),
+    }
+    print(json.dumps({"value_and_grad_f64": grad64}), flush=True)
+    if not (math.isfinite(loss64) and all(math.isfinite(v) for v in grads64.values())):
+        fail(f"a float64 volumetric gradient is not finite: {grad64}")
+    return grad64
 
 
 def main():
@@ -1574,7 +1846,7 @@ def main():
     for dtype in (torch.float32, torch.float64):
         for compensated in (False, True):
             # The main path's configuration runs its whole budget; the plain
-            # march costs ~4.5 ms an iteration whatever the lane count, so the
+            # march costs milliseconds an iteration whatever the lane count, so the
             # other variants compare their first BL_COMPARE_ATTEMPTS steps.
             full = dtype == torch.float32 and not compensated
             r = compare_march(dtype, compensated, bl_flops_step, bl=True,
@@ -1717,22 +1989,38 @@ def main():
     if 0 in (bl_grad["k3_launches"], bl_grad["k6_launches"], bl_grad["k7_launches"]):
         fail(f"the BL volumetric gradient did not launch K3, K6 and K7: {bl_grad}")
 
-    phase("21. kernels")
+    sphere_marches = sphere_march_phases()
+    sphere_renders = sphere_render_phases()
+    f64_gradient_phase(vol_fit)
+
+    phase("27. kernels")
     prod = variants[(torch.float32, False)]
     sweep = sweeps[torch.float32]
     bl_prod = bl_variants[(torch.float32, False)]
     bl_sweep = bl_sweeps[torch.float32]
     raymarch = raymarches[torch.float32]
+
+    def sphere_rows(kernel):
+        """The sphere comparisons of `kernel`: chunk, type, error, times."""
+        keys = ("max_abs_err", "kernel_ms", "plain_ms", "attempts", "bound_ms", "sphere_events", "bit_identical")
+        return [{"chunk": label, "dtype": str(dt).replace("torch.", ""), **{k: r[k] for k in keys}}
+                for (k, label, dt), r in sphere_marches.items() if k == kernel]
+
     kernels = [{
         "name": "kerr_rk4_march",
         "route": "cuda",
         "source": "gr_raytracer_tpu_torch/csrc/kerr_rk4_march.cu",
         "replaces": "gr_raytracer_tpu/ops/geodesic_pallas.py:790",
-        "launches": launches + fit["k1_launches"] + vol_main["k1_launches"] + vol_fit["launches"]["k1"],
+        "launches": (launches + fit["k1_launches"] + vol_main["k1_launches"] + vol_fit["launches"]["k1"]
+                     + sphere_renders["kerr-sphere.toml"]["launches"]),
         "launches_by_path": {"render": launches, "fit": fit["k1_launches"],
                              "render_volumetric": vol_main["k1_launches"],
-                             "fit_volumetric": vol_fit["launches"]["k1"]},
-        "max_abs_err": max(prod["max_abs_err"], variants[(torch.float32, True)]["max_abs_err"]),
+                             "fit_volumetric": vol_fit["launches"]["k1"],
+                             "render_kerr_sphere": sphere_renders["kerr-sphere.toml"]["launches"]},
+        "max_abs_err": max(prod["max_abs_err"], variants[(torch.float32, True)]["max_abs_err"],
+                           *(r["max_abs_err"] for (k, _, dt), r in sphere_marches.items()
+                             if k == "K1" and dt == torch.float32)),
+        "sphere_events": sphere_rows("K1"),
         "ms": prod["kernel_ms"],
         "plain_ms": prod["plain_ms"],
         "bound_ms": prod["bound_ms"],
@@ -1756,11 +2044,18 @@ def main():
         "source": "gr_raytracer_tpu_torch/csrc/kerr_bl_march.cu",
         "replaces": "gr_raytracer_tpu/ops/geodesic_pallas.py:1235",
         "launches": (bl_render_launches + sch_launches + bl_fit["k3_launches"] + bl_vol["k3_launches"]
-                     + bl_grad["k3_launches"]),
+                     + bl_grad["k3_launches"] + sphere_renders["schwarzschild.toml"]["launches"]
+                     + sphere_renders["schwarzschild-sphere.toml"]["launches"]),
         "launches_by_path": {"render_kerr_bl": bl_render_launches, "render_schwarzschild": sch_launches,
                              "fit": bl_fit["k3_launches"], "render_bl_volumetric": bl_vol["k3_launches"],
-                             "grad_bl_volumetric": bl_grad["k3_launches"]},
-        "max_abs_err": max(bl_prod["max_abs_err"], bl_variants[(torch.float32, True)]["max_abs_err"]),
+                             "grad_bl_volumetric": bl_grad["k3_launches"],
+                             "render_schwarzschild_toml": sphere_renders["schwarzschild.toml"]["launches"],
+                             "render_schwarzschild_sphere":
+                                 sphere_renders["schwarzschild-sphere.toml"]["launches"]},
+        "max_abs_err": max(bl_prod["max_abs_err"], bl_variants[(torch.float32, True)]["max_abs_err"],
+                           *(r["max_abs_err"] for (k, _, dt), r in sphere_marches.items()
+                             if k == "K3" and dt == torch.float32)),
+        "sphere_events": sphere_rows("K3"),
         "ms": bl_prod["kernel_ms"],
         "plain_ms": bl_prod["plain_ms"],
         "bound_ms": bl_prod["bound_ms"],

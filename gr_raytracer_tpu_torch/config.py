@@ -3,9 +3,9 @@ gr_raytracer_tpu/config.py).
 
 `parse_config` reads every scene file of scene-definitions/. `create_scene`
 assembles the geometries and objects this port supports so far — Kerr,
-KerrBL and Schwarzschild with thin discs and z-axis volumetric discs, and
-BlackBody, Checker or Bitmap textures — and raises ConfigError for the
-rest.
+KerrBL and Schwarzschild with thin discs, spheres and z-axis volumetric
+discs, and BlackBody, Checker or Bitmap textures — and raises ConfigError
+for the rest.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from gr_raytracer_tpu_torch.geometry.kerr import Kerr
 from gr_raytracer_tpu_torch.geometry.kerr_bl import KerrBL
 from gr_raytracer_tpu_torch.geometry.schwarzschild import Schwarzschild
 from gr_raytracer_tpu_torch.objects.disc import Disc
+from gr_raytracer_tpu_torch.objects.sphere import Sphere
 from gr_raytracer_tpu_torch.objects.volumetric_disc import build_volumetric_disc
 from gr_raytracer_tpu_torch.rendering import camera as cam
 from gr_raytracer_tpu_torch.rendering import integrator as integ
@@ -204,11 +205,22 @@ def build_objects(cfg: RenderConfig, geometry, factory: TextureFactory, dtype, d
     out = []
     for i, obj in enumerate(cfg.objects):
         kind = obj["kind"]
-        if kind not in ("Disc", "VolumetricDisc"):
-            raise ConfigError(f"objects[{i}]: {kind!r} is not yet ported (Disc and VolumetricDisc only)")
+        if kind not in ("Disc", "Sphere", "VolumetricDisc"):
+            raise ConfigError(f"objects[{i}]: unknown object kind {kind!r}")
         if kind == "Disc" and not obj["inner_radius"] < obj["outer_radius"]:
             raise ConfigError(f"objects[{i}].Disc: inner_radius must be < outer_radius")
         tex = factory.build(obj["texture"])
+        if kind == "Sphere":
+            px, py, pz = obj["position"]
+            out.append(
+                Sphere(
+                    radius=torch.tensor(float(obj["radius"]), dtype=dtype, device=device),
+                    center=torch.tensor([0.0, px, py, pz], dtype=dtype, device=device),
+                    temperature=torch.tensor(float(obj["temperature"]), dtype=dtype, device=device),
+                    texture=tex,
+                )
+            )
+            continue
         # Novikov-Thorne table: every geometry ported so far is a black hole;
         # Schwarzschild has no spin.
         make_temperature = lambda: build_disc_temperature(

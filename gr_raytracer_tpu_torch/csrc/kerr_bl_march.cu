@@ -1,5 +1,5 @@
 // Carter-separated Mino-time RK4 march in Boyer-Lindquist coordinates, with
-// in-loop thin-disc events.
+// in-loop disc, sphere and volume events.
 //
 // Replaces the TPU kernel gr_raytracer_tpu/ops/geodesic_pallas.py
 // kerr_bl_rk4_march (pallas_call body _bl_march_kernel). Same arithmetic,
@@ -24,15 +24,17 @@
 // functions live in kerr_bl_common.cuh, shared with the reverse sweep
 // kerr_bl_adjoint.cu, whose re-forward replays this march bit for bit.
 //
-// Options ported: disc events, the bounding-volume events of z-axis
-// volumetric discs (vol_events.cuh, on the step's Kerr-Schild embedded
-// chord), the opaque stop, the Kahan-compensated update, `attempts`,
-// `finalize` and the reverse-sweep checkpoints. Sphere events and resume
-// are rejected by the Python wrapper. A pole
+// Options ported: disc events, sphere events (sphere_events.cuh) and the
+// bounding-volume events of z-axis volumetric discs (vol_events.cuh), both
+// on the step's Kerr-Schild embedded chord, in that order within a step;
+// the opaque stop, the Kahan-compensated update, `attempts`, `finalize`
+// and the reverse-sweep checkpoints. Resume is rejected by the Python
+// wrapper. A pole
 // hit (sin θ = 0) gives a non-finite right-hand side and stops the lane
 // NAN, the documented classification.
 
 #include "kerr_bl_common.cuh"
+#include "sphere_events.cuh"
 #include "vol_events.cuh"
 
 namespace {
@@ -49,6 +51,7 @@ struct Params {
   T disc_outer[kMaxDiscs];
   int disc_kind[kMaxDiscs];
   int n_discs;
+  SphereTable<T> spheres;
   VolTable<T> vols;
   int attempts;
   int budget_steps;
@@ -170,6 +173,22 @@ bl_march_kernel(const Params<T> P, const T* __restrict__ y0, const T* __restrict
         ++ev_count;
       }
     }
+    // Sphere events: gated on the near test in BL, then found on the
+    // embedded chord.
+    if (P.spheres.n > 0) {
+      const T st0 = sin_(y[2]), st1 = sin_(y_new[2]);
+      const T n0 = sqrt_(y[1] * y[1] + P.a * P.a * (st0 * st0));
+      const T n1 = sqrt_(y_new[1] * y_new[1] + P.a * P.a * (st1 * st1));
+      if (sphere_candidate_bl(P.spheres, n0, n1)) {
+        T p_prev[4], p_new[4], s3[3], e3[3];
+        bl_momentum(P.radius, P.a, e, l_z, y, p_prev);
+        bl_momentum(P.radius, P.a, e, l_z, y_new, p_new);
+        bl_embed3(P.a, y, s3);
+        bl_embed3(P.a, y_new, e3);
+        store_sphere_events(P.spheres, s3, e3, p_prev, p_new, P.max_events, my_kind, my_data,
+                            ev_count, ev_ovf);
+      }
+    }
     // Volume events: gated on the embedded chord's z = r cos θ meeting a
     // volume's band (z is linear between the chord's ends).
     if (P.vols.n > 0 && vol_candidate(P.vols, y[1] * cos_(y[2]), y_new[1] * cos_(y_new[2]),
@@ -182,9 +201,11 @@ bl_march_kernel(const Params<T> P, const T* __restrict__ y0, const T* __restrict
       store_vol_events(P.vols, s3, e3, p_prev, p_new, P.max_events, my_kind, my_data, ev_count,
                        ev_ovf);
     }
-    // Opaque stop: the first disc event saturates the fold (after the
-    // stores).
-    if (P.opaque_stop && P.n_discs > 0 && code == kRunning && ev_count > 0) code = kSaturated;
+    // Opaque stop: the first disc or sphere event saturates the fold
+    // (after the stores).
+    if (P.opaque_stop && (P.n_discs > 0 || P.spheres.n > 0) && code == kRunning && ev_count > 0) {
+      code = kSaturated;
+    }
 
 #pragma unroll
     for (int i = 0; i < 8; ++i) y[i] = y_new[i];
@@ -202,7 +223,8 @@ bl_march_kernel(const Params<T> P, const T* __restrict__ y0, const T* __restrict
 }
 
 // params: radius, a, horizon_eps, h0, max_radius, h_min_frac, r_ref.
-// discs: n_discs rows of (inner, outer, kind); vols: n_vols rows of (inner,
+// discs: n_discs rows of (inner, outer, kind); spheres: n_spheres rows of
+// (radius, cx, cy, cz, radius², |c|, kind); vols: n_vols rows of (inner,
 // outer, cap_h, kind). ints: attempts, budget_steps, opaque_stop,
 // finalize, compensated, ckpt_every, max_events (the event slots of a lane:
 // ev_kind is [n, max_events], ev_data [n, max_events, 12]). e, l_z, q:
@@ -211,9 +233,11 @@ bl_march_kernel(const Params<T> P, const T* __restrict__ y0, const T* __restrict
 template <typename T>
 int launch(const void* y0, const void* e, const void* l_z, const void* q, int64_t n, void* y_out,
            void* stop, void* steps, void* ev_kind, void* ev_data, void* ev_count, void* ev_ovf,
-           void* ckpt, const double* params, const double* discs, int n_discs, const double* vols,
-           int n_vols, const int* ints, void* stream) {
+           void* ckpt, const double* params, const double* discs, int n_discs,
+           const double* spheres, int n_spheres, const double* vols, int n_vols, const int* ints,
+           void* stream) {
   if (n_discs < 0 || n_discs > kMaxDiscs) return (int)cudaErrorInvalidValue;
+  if (n_spheres < 0 || n_spheres > kMaxSpheres) return (int)cudaErrorInvalidValue;
   if (n_vols < 0 || n_vols > kMaxVols) return (int)cudaErrorInvalidValue;
   if (ints[5] < 0 || (ints[5] > 0 && ckpt == nullptr)) return (int)cudaErrorInvalidValue;
   if (ints[6] < 1) return (int)cudaErrorInvalidValue;
@@ -232,6 +256,7 @@ int launch(const void* y0, const void* e, const void* l_z, const void* q, int64_
     P.disc_kind[i] = on ? (int)discs[3 * i + 2] : -1;
   }
   P.n_discs = n_discs;
+  fill_sphere_table(P.spheres, spheres, n_spheres);
   fill_vol_table(P.vols, vols, n_vols);
   P.attempts = ints[0];
   P.budget_steps = ints[1];
@@ -258,18 +283,22 @@ int kerr_bl_rk4_march_f32(const void* y0, const void* e, const void* l_z, const 
                           int64_t n, void* y_out, void* stop, void* steps, void* ev_kind,
                           void* ev_data, void* ev_count, void* ev_ovf, void* ckpt,
                           const double* params, const double* discs, int n_discs,
-                          const double* vols, int n_vols, const int* ints, void* stream) {
+                          const double* spheres, int n_spheres, const double* vols, int n_vols,
+                          const int* ints, void* stream) {
   return launch<float>(y0, e, l_z, q, n, y_out, stop, steps, ev_kind, ev_data, ev_count, ev_ovf,
-                       ckpt, params, discs, n_discs, vols, n_vols, ints, stream);
+                       ckpt, params, discs, n_discs, spheres, n_spheres, vols, n_vols, ints,
+                       stream);
 }
 
 int kerr_bl_rk4_march_f64(const void* y0, const void* e, const void* l_z, const void* q,
                           int64_t n, void* y_out, void* stop, void* steps, void* ev_kind,
                           void* ev_data, void* ev_count, void* ev_ovf, void* ckpt,
                           const double* params, const double* discs, int n_discs,
-                          const double* vols, int n_vols, const int* ints, void* stream) {
+                          const double* spheres, int n_spheres, const double* vols, int n_vols,
+                          const int* ints, void* stream) {
   return launch<double>(y0, e, l_z, q, n, y_out, stop, steps, ev_kind, ev_data, ev_count, ev_ovf,
-                        ckpt, params, discs, n_discs, vols, n_vols, ints, stream);
+                        ckpt, params, discs, n_discs, spheres, n_spheres, vols, n_vols, ints,
+                        stream);
 }
 
 }  // extern "C"

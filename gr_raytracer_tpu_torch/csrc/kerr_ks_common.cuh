@@ -93,6 +93,8 @@ __device__ __forceinline__ float cos_(float x) { return cosf(x); }
 __device__ __forceinline__ double cos_(double x) { return cos(x); }
 __device__ __forceinline__ float sin_(float x) { return sinf(x); }
 __device__ __forceinline__ double sin_(double x) { return sin(x); }
+__device__ __forceinline__ float fabs_(float x) { return fabsf(x); }
+__device__ __forceinline__ double fabs_(double x) { return fabs(x); }
 
 template <typename T>
 __device__ __forceinline__ Dual<T> sqrt_(Dual<T> x) {

@@ -1,4 +1,5 @@
-// Fixed-step RK4 Kerr-Schild geodesic march with in-loop thin-disc events.
+// Fixed-step RK4 Kerr-Schild geodesic march with in-loop disc, sphere and
+// volume events.
 //
 // Replaces the TPU kernel gr_raytracer_tpu/ops/geodesic_pallas.py
 // kerr_rk4_march (pallas_call body _march_kernel). Same arithmetic, stop
@@ -26,17 +27,18 @@
 // metadata packing, the polynomial atan2) is not needed: atan2 comes from
 // the CUDA math library.
 //
-// Options ported: disc events, the bounding-volume events of z-axis
-// volumetric discs (vol_events.cuh), the opaque stop, the far-field lever,
-// the Kahan-compensated update, `attempts`, `finalize` and the
-// reverse-sweep checkpoints (`ckpt_every`). Sphere events and resume are
-// rejected by the Python wrapper.
+// Options ported: disc events, sphere events (sphere_events.cuh), the
+// bounding-volume events of z-axis volumetric discs (vol_events.cuh), in
+// that order within a step, the opaque stop, the far-field lever, the
+// Kahan-compensated update, `attempts`, `finalize` and the reverse-sweep
+// checkpoints (`ckpt_every`). Resume is rejected by the Python wrapper.
 //
 // The device functions (right-hand side, step rule, p^μ) live in
 // kerr_ks_common.cuh, shared with the reverse sweep kerr_ks_adjoint.cu, so
 // that its re-forward replays this march bit for bit.
 
 #include "kerr_ks_common.cuh"
+#include "sphere_events.cuh"
 #include "vol_events.cuh"
 
 namespace {
@@ -53,6 +55,7 @@ struct Params {
   T disc_outer[kMaxDiscs];
   int disc_kind[kMaxDiscs];
   int n_discs;
+  SphereTable<T> spheres;
   VolTable<T> vols;
   int attempts;
   int budget_steps;
@@ -170,6 +173,15 @@ march_kernel(const Params<T> P, const T* __restrict__ y0, int64_t n, T* __restri
         ++ev_count;
       }
     }
+    // Sphere events: gated on some sphere's surface lying between the
+    // chord's endpoint radii.
+    if (P.spheres.n > 0 && sphere_candidate_ks(P.spheres, y + 1, y_new + 1)) {
+      T p_prev[4], p_new[4];
+      momentum_contra(P.radius, P.a, y, p_prev);
+      momentum_contra(P.radius, P.a, y_new, p_new);
+      store_sphere_events(P.spheres, y + 1, y_new + 1, p_prev, p_new, P.max_events, my_kind,
+                          my_data, ev_count, ev_ovf);
+    }
     // Volume events: gated on the chord's z range meeting a volume's band
     // and its closest approach to the axis (in xy) lying inside the outer
     // cylinder.
@@ -188,9 +200,11 @@ march_kernel(const Params<T> P, const T* __restrict__ y0, int64_t n, T* __restri
                          ev_count, ev_ovf);
       }
     }
-    // Opaque stop: the first disc event saturates the fold (after the
-    // stores).
-    if (P.opaque_stop && P.n_discs > 0 && code == kRunning && ev_count > 0) code = kSaturated;
+    // Opaque stop: the first disc or sphere event saturates the fold
+    // (after the stores).
+    if (P.opaque_stop && (P.n_discs > 0 || P.spheres.n > 0) && code == kRunning && ev_count > 0) {
+      code = kSaturated;
+    }
 
 #pragma unroll
     for (int i = 0; i < 8; ++i) y[i] = y_new[i];
@@ -209,7 +223,8 @@ march_kernel(const Params<T> P, const T* __restrict__ y0, int64_t n, T* __restri
 }
 
 // params: radius, a, horizon_eps, h0, max_radius, h_min_frac, r_ref, r_safe.
-// discs: n_discs rows of (inner, outer, kind); vols: n_vols rows of (inner,
+// discs: n_discs rows of (inner, outer, kind); spheres: n_spheres rows of
+// (radius, cx, cy, cz, radius², |c|, kind); vols: n_vols rows of (inner,
 // outer, cap_h, kind). ints: attempts, budget_steps, opaque_stop,
 // finalize, compensated, ckpt_every, max_events (the event slots of a lane:
 // ev_kind is [n, max_events], ev_data [n, max_events, 12]). ckpt:
@@ -218,9 +233,10 @@ march_kernel(const Params<T> P, const T* __restrict__ y0, int64_t n, T* __restri
 template <typename T>
 int launch(const void* y0, int64_t n, void* y_out, void* stop, void* steps, void* ev_kind,
            void* ev_data, void* ev_count, void* ev_ovf, void* ckpt, const double* params,
-           const double* discs, int n_discs, const double* vols, int n_vols, const int* ints,
-           void* stream) {
+           const double* discs, int n_discs, const double* spheres, int n_spheres,
+           const double* vols, int n_vols, const int* ints, void* stream) {
   if (n_discs < 0 || n_discs > kMaxDiscs) return (int)cudaErrorInvalidValue;
+  if (n_spheres < 0 || n_spheres > kMaxSpheres) return (int)cudaErrorInvalidValue;
   if (n_vols < 0 || n_vols > kMaxVols) return (int)cudaErrorInvalidValue;
   if (ints[5] < 0 || (ints[5] > 0 && ckpt == nullptr)) return (int)cudaErrorInvalidValue;
   if (ints[6] < 1) return (int)cudaErrorInvalidValue;
@@ -240,6 +256,7 @@ int launch(const void* y0, int64_t n, void* y_out, void* stop, void* steps, void
     P.disc_kind[i] = on ? (int)discs[3 * i + 2] : -1;
   }
   P.n_discs = n_discs;
+  fill_sphere_table(P.spheres, spheres, n_spheres);
   fill_vol_table(P.vols, vols, n_vols);
   P.attempts = ints[0];
   P.budget_steps = ints[1];
@@ -263,20 +280,20 @@ extern "C" {
 
 int kerr_rk4_march_f32(const void* y0, int64_t n, void* y_out, void* stop, void* steps,
                        void* ev_kind, void* ev_data, void* ev_count, void* ev_ovf, void* ckpt,
-                       const double* params, const double* discs, int n_discs, const double* vols,
-                       int n_vols, const int* ints,
-                       void* stream) {
+                       const double* params, const double* discs, int n_discs,
+                       const double* spheres, int n_spheres, const double* vols, int n_vols,
+                       const int* ints, void* stream) {
   return launch<float>(y0, n, y_out, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, ckpt,
-                       params, discs, n_discs, vols, n_vols, ints, stream);
+                       params, discs, n_discs, spheres, n_spheres, vols, n_vols, ints, stream);
 }
 
 int kerr_rk4_march_f64(const void* y0, int64_t n, void* y_out, void* stop, void* steps,
                        void* ev_kind, void* ev_data, void* ev_count, void* ev_ovf, void* ckpt,
-                       const double* params, const double* discs, int n_discs, const double* vols,
-                       int n_vols, const int* ints,
-                       void* stream) {
+                       const double* params, const double* discs, int n_discs,
+                       const double* spheres, int n_spheres, const double* vols, int n_vols,
+                       const int* ints, void* stream) {
   return launch<double>(y0, n, y_out, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, ckpt,
-                        params, discs, n_discs, vols, n_vols, ints, stream);
+                        params, discs, n_discs, spheres, n_spheres, vols, n_vols, ints, stream);
 }
 
 }  // extern "C"

@@ -48,9 +48,6 @@ __host__ void fill_vol_table(VolTable<T>& V, const double* rows, int n) {
   V.n = n;
 }
 
-__device__ __forceinline__ float fabs_(float x) { return fabsf(x); }
-__device__ __forceinline__ double fabs_(double x) { return fabs(x); }
-
 // Does the chord's z range [min(z0, z1), max(z0, z1)] meet some volume's
 // band, and (with check_rho) its closest squared distance to the axis lie
 // inside that volume's outer cylinder? Necessary for every root.

@@ -1,6 +1,6 @@
-"""Fixed-step RK4 geodesic marches with in-loop disc events (counterpart of
-gr_raytracer_tpu/ops/geodesic_pallas.py::kerr_rk4_march and
-::kerr_bl_rk4_march).
+"""Fixed-step RK4 geodesic marches with in-loop disc, sphere and volume
+events (counterpart of gr_raytracer_tpu/ops/geodesic_pallas.py::
+kerr_rk4_march and ::kerr_bl_rk4_march).
 
 `kerr_rk4_march` marches Kerr-Schild states (position | covariant
 momentum); `kerr_bl_rk4_march` marches Boyer-Lindquist states in Mino time
@@ -14,11 +14,12 @@ their design and what bounds them.
 Kerr-Schild step size: h = h0 · clip((r − r₊)/r_ref, h_min_frac, 1), with
 the far-field lever (half-gap steps for outward lanes beyond r_safe).
 Events go into a K-slot per-lane buffer of 12-wide payloads (point3 |
-p_contra4 | uv2 | seg_dir3): equatorial thin-disc crossings, then
-crossings of a z-axis volumetric disc's bounding volume (its inner and
-outer cylinders clipped to ±cap_h), found by six candidate roots on the
-step's Cartesian chord; the raymarch then starts at the crossing point
-(ops/volumetric_march.py).
+p_contra4 | uv2 | seg_dir3), stored within a step in this order:
+equatorial thin-disc crossings; sphere surface crossings of the step's
+Cartesian chord (the endpoint radii straddle the surface; local spherical
+UV); crossings of a z-axis volumetric disc's bounding volume (its inner
+and outer cylinders clipped to ±cap_h), found by six candidate roots on
+the chord, where the raymarch then starts (ops/volumetric_march.py).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from gr_raytracer_tpu_torch.rendering import integrator as integ
 MAX_EVENTS = 8
 EVENT_WIDTH = 12
 MAX_DISCS = 8  # kMaxDiscs in the CUDA source
+MAX_SPHERES = 8  # kMaxSpheres in csrc/sphere_events.cuh
 MAX_VOLS = 8  # kMaxVols in csrc/vol_events.cuh
 MIN_INTERSECTION_T = 1e-9  # objects/volumetric_disc.py
 # Lanes are re-gathered every this many iterations of the plain march, so
@@ -54,6 +56,17 @@ class DiscSpec(NamedTuple):
 
     inner: float
     outer: float
+    kind: int  # object index in the scene
+
+
+class SphereSpec(NamedTuple):
+    """A sphere for in-kernel surface-crossing detection: radius and
+    Cartesian center."""
+
+    radius: float
+    cx: float
+    cy: float
+    cz: float
     kind: int  # object index in the scene
 
 
@@ -237,6 +250,88 @@ def _store_disc_events(discs, crossing, px, py, p_interp, seg, ev_kind, ev_data,
     return ev_count, ev_ovf
 
 
+def _store_sphere_events(spheres, gate, s3, e3, p_prev, p_new, ev_kind, ev_data, ev_count, ev_ovf):
+    """Append one event per sphere whose surface the chord s3 → e3 ([3, N]
+    each) crosses, on `gate` lanes: the endpoint radii straddle the
+    surface (a chord fully through the sphere is a miss), the + root is
+    preferred, θ of the local spherical UV is atan2(√max(1 − c², 0), c),
+    as in the kernel."""
+    d = e3 - s3
+    two_pi = s3.new_tensor(2.0 * math.pi)
+    pi = s3.new_tensor(math.pi)
+    lanes = torch.arange(s3.shape[1], device=s3.device)
+    for sp in spheres:
+        s_loc = torch.stack([s3[0] - sp.cx, s3[1] - sp.cy, s3[2] - sp.cz])
+        e_loc = torch.stack([e3[0] - sp.cx, e3[1] - sp.cy, e3[2] - sp.cz])
+        r2 = sp.radius * sp.radius
+        rs = s_loc[0] * s_loc[0] + s_loc[1] * s_loc[1] + s_loc[2] * s_loc[2]
+        re = e_loc[0] * e_loc[0] + e_loc[1] * e_loc[1] + e_loc[2] * e_loc[2]
+        crossing = ((rs >= r2) & (re <= r2)) | ((rs <= r2) & (re >= r2))
+
+        a = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        b = 2.0 * (s_loc[0] * d[0] + s_loc[1] * d[1] + s_loc[2] * d[2])
+        c = rs - r2
+        disc = b * b - 4.0 * a * c
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        safe_a = torch.where(a != 0.0, a, 1.0)
+        t1 = (-b + sq) / (2.0 * safe_a)
+        t2 = (-b - sq) / (2.0 * safe_a)
+        t1_ok = (t1 >= 0.0) & (t1 <= 1.0)
+        t2_ok = (t2 >= 0.0) & (t2 <= 1.0)
+        t = torch.where(t1_ok, t1, t2)
+        hit = gate & crossing & (disc >= 0.0) & (t1_ok | t2_ok) & (a != 0.0)
+
+        local = s_loc + t[None] * d
+        r_loc = torch.sqrt(torch.clamp(local[0] * local[0] + local[1] * local[1] + local[2] * local[2], min=1e-30))
+        cos_th = torch.clamp(local[2] / r_loc, -1.0, 1.0)
+        theta = torch.atan2(torch.sqrt(torch.clamp(1.0 - cos_th * cos_th, min=0.0)), cos_th)
+        phi = torch.atan2(local[1], local[0])
+        u = 1.0 - (math.pi + phi) / two_pi
+        v = theta / pi
+        world = (local[0] + sp.cx, local[1] + sp.cy, local[2] + sp.cz)
+        p_interp = p_prev + t[None] * (p_new - p_prev)
+        payload = torch.stack([*world, *p_interp, u, v, *d], dim=-1)  # [N, 12]
+        store = hit & (ev_count < ev_kind.shape[1])
+        sel = lanes[store]
+        slot = ev_count[store].long()
+        ev_kind[sel, slot] = sp.kind
+        ev_data[sel, slot] = payload[store]
+        ev_count = ev_count + store.to(ev_count.dtype)
+        ev_ovf = ev_ovf | (hit & ~store)
+    return ev_count, ev_ovf
+
+
+def _sphere_candidates_ks(spheres, active, y, y_new):
+    """Lanes whose step may cross a sphere: (|s − c|² − R²)(|e − c|² − R²)
+    ≤ 0 for some sphere, with the store's own |s − c|², so it holds on
+    every lane the store's straddle test passes."""
+    cand = torch.zeros_like(active)
+    for sp in spheres:
+        r2 = sp.radius * sp.radius
+        rs = (y[1] - sp.cx) * (y[1] - sp.cx) + (y[2] - sp.cy) * (y[2] - sp.cy) + (y[3] - sp.cz) * (y[3] - sp.cz)
+        re = (
+            (y_new[1] - sp.cx) * (y_new[1] - sp.cx) + (y_new[2] - sp.cy) * (y_new[2] - sp.cy)
+            + (y_new[3] - sp.cz) * (y_new[3] - sp.cz)
+        )
+        cand = cand | ((rs - r2) * (re - r2) <= 0.0)
+    return cand & active
+
+
+def _sphere_candidates_bl(spheres, a, active, y, y_new):
+    """Lanes of a BL step that may cross a sphere: an endpoint inside a
+    sphere has ||p| − |c|| ≤ R, where |p|² = r² + a² sin²θ is the norm of
+    its Kerr-Schild embedding (the reverse triangle inequality). Evaluated
+    before the embedding."""
+    st0, st1 = torch.sin(y[2]), torch.sin(y_new[2])
+    n0 = torch.sqrt(y[1] * y[1] + a * a * (st0 * st0))
+    n1 = torch.sqrt(y_new[1] * y_new[1] + a * a * (st1 * st1))
+    cand = torch.zeros_like(active)
+    for sp in spheres:
+        c_norm = math.sqrt(sp.cx * sp.cx + sp.cy * sp.cy + sp.cz * sp.cz)
+        cand = cand | (torch.abs(n0 - c_norm) <= sp.radius) | (torch.abs(n1 - c_norm) <= sp.radius)
+    return cand & active
+
+
 def _store_vol_events(vols, cand, s3, e3, p_prev, p_new, ev_kind, ev_data, ev_count, ev_ovf):
     """Append, per volume, the first bounding-volume crossing of each
     candidate lane's chord s3 → e3 ([3, N] each): the smallest root in
@@ -311,11 +406,10 @@ def _vol_candidates(vols, active, z_prev, z_new, rho_min2=None):
     return cand & active
 
 
-def _plain_step(c, lanes, discs, vols=()):
-    """One march iteration over `lanes`; stopped lanes stay frozen."""
-    y, r_here, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, comp = lanes
+def _ks_rk4_delta(c, y, r_here):
+    """y_new − y of one RK4 step with the step rule and the far-field
+    lever."""
     radius, a = c["radius"], c["a"]
-    active = stop == integ.RUNNING
     h = c["h0"] * torch.clamp((r_here - c["r_plus"]) / c["r_ref"], c["h_min_frac"], 1.0)
 
     k1 = _rhs(radius, a, y)
@@ -331,8 +425,19 @@ def _plain_step(c, lanes, discs, vols=()):
     k4 = _rhs(radius, a, y + h * k3)
     # Divisors are tensors: on the card torch turns division by a Python
     # scalar into multiplication by its reciprocal, which the kernel's true
-    # division would not match.
-    delta = (h / h.new_tensor(6.0)) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    # division would not match. new_full fills on the device, so a CUDA
+    # graph can capture it.
+    return (h / h.new_full((), 6.0)) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+
+def _plain_step(c, lanes, discs, spheres=(), vols=(), delta_fn=None):
+    """One march iteration over `lanes`; stopped lanes stay frozen.
+    delta_fn(y, r_here), when given, stands in for _ks_rk4_delta (a replay
+    of it: _replayed)."""
+    y, r_here, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, comp = lanes
+    radius, a = c["radius"], c["a"]
+    active = stop == integ.RUNNING
+    delta = (delta_fn or (lambda yy, rr: _ks_rk4_delta(c, yy, rr)))(y, r_here)
     y_new, comp = _update(c, active, y, delta, comp)
 
     pos_finite = torch.all(torch.isfinite(y_new[0:4]), dim=0)
@@ -357,6 +462,14 @@ def _plain_step(c, lanes, discs, vols=()):
             ev_count, ev_ovf = _store_disc_events(
                 discs, crossing, px, py, p_interp, seg, ev_kind, ev_data, ev_count, ev_ovf
             )
+    if spheres:
+        cand = _sphere_candidates_ks(spheres, active, y, y_new)
+        if bool(cand.any()):
+            p_prev = _momentum_contra(radius, a, y)
+            p_new = _momentum_contra(radius, a, y_new)
+            ev_count, ev_ovf = _store_sphere_events(
+                spheres, cand, y[1:4], y_new[1:4], p_prev, p_new, ev_kind, ev_data, ev_count, ev_ovf
+            )
     if vols:
         # The chord's closest approach to the axis in the xy plane.
         dx = y_new[1] - y[1]
@@ -373,7 +486,9 @@ def _plain_step(c, lanes, discs, vols=()):
             ev_count, ev_ovf = _store_vol_events(
                 vols, cand, y[1:4], y_new[1:4], p_prev, p_new, ev_kind, ev_data, ev_count, ev_ovf
             )
-    if discs and c["opaque_stop"]:
+    if (discs or spheres) and c["opaque_stop"]:
+        # Every texture is opaque: the first disc or sphere event saturates
+        # the fold, so the lane stops after the step's stores.
         stop_new = torch.where(
             (stop_new == integ.RUNNING) & (ev_count > 0), integ.SATURATED, stop_new
         )
@@ -384,8 +499,6 @@ def _plain_step(c, lanes, discs, vols=()):
 def _check_args(y0, discs, spheres, vols, resume, ckpt_every, max_events=MAX_EVENTS):
     if int(max_events) < 1:
         raise ValueError(f"max_events must be >= 1, got {max_events}")
-    if spheres:
-        raise NotImplementedError("sphere events are not yet ported")
     if resume is not None:
         raise NotImplementedError("resume is not yet ported")
     if int(ckpt_every) < 0:
@@ -396,6 +509,10 @@ def _check_args(y0, discs, spheres, vols, resume, ckpt_every, max_events=MAX_EVE
         raise TypeError(f"y0 must be float32 or float64, got {y0.dtype}")
     if len(discs) > MAX_DISCS:
         raise NotImplementedError(f"at most {MAX_DISCS} discs per scene")
+    if len(spheres) > MAX_SPHERES:
+        raise NotImplementedError(f"at most {MAX_SPHERES} spheres per scene")
+    if not all(isinstance(s, SphereSpec) for s in spheres):
+        raise TypeError("spheres must be SphereSpec")
     if len(vols) > MAX_VOLS:
         raise NotImplementedError(f"at most {MAX_VOLS} volumetric discs per scene")
     if not all(isinstance(v, VolSpec) for v in vols):
@@ -418,21 +535,61 @@ def march_plain(
                          r_ref_scale, opaque_stop, compensated, dtype, device)
     c["r_safe"] = float(torch.tensor(float(r_safe), dtype=dtype))
     discs = _rounded_discs(discs, dtype)
+    spheres = tuple(spheres)
     y = _lane_major_copy(y0)
     lanes = _Lanes(
         y, _ks_radius(c["a"], y[1], y[2], y[3]), torch.zeros(n, dtype=torch.int32, device=device),
         torch.zeros(n, dtype=torch.int32, device=device),
         *_event_buffers(n, dtype, device, int(max_events)), torch.zeros_like(y),
     )
-    return _march_lanes(lambda sub: _plain_step(c, sub, discs, vols), lanes, attempts, finalize, ckpt_every)
+
+    def batch_step(sub):
+        delta = _replayed(lambda yy, rr: _ks_rk4_delta(c, yy, rr), sub.y, sub.r)
+        return lambda s: _plain_step(c, s, discs, spheres, vols, delta)
+
+    return _march_lanes(batch_step, lanes, attempts, finalize, ckpt_every)
 
 
-def _march_lanes(step, lanes, attempts, finalize, ckpt_every):
-    """Run `step` over the RUNNING lanes for up to `attempts` iterations,
-    re-gathering the lanes every _COMPACT_EVERY iterations; returns the
-    march's results (y [N, 8], stop, steps, ev_kind, ev_data, ev_count,
-    ev_overflow, and the checkpoints [S, 8, N] when ckpt_every > 0). The
-    checkpoint rows go by the global iteration count."""
+class _Replay:
+    """fn(*inputs) on fixed-shape CUDA tensors, captured once into a CUDA
+    graph and replayed per call: the same kernels, so the same bits, for
+    one launch in place of the host's dispatch of every op. The plain
+    marches replay the RK4 part of their step (~170 ops for BL, ~330 for
+    Kerr-Schild) within a compaction batch, whose shapes are fixed; the
+    host's dispatch otherwise bounds them. The returned tensor is the
+    graph's own output, overwritten by the next call."""
+
+    def __init__(self, fn, *inputs):
+        self.inputs = tuple(x.clone() for x in inputs)
+        side = torch.cuda.Stream(inputs[0].device)
+        side.wait_stream(torch.cuda.current_stream(inputs[0].device))
+        with torch.cuda.stream(side):
+            fn(*self.inputs)  # warm-up: nothing initializes lazily inside the capture
+        torch.cuda.current_stream(inputs[0].device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.output = fn(*self.inputs)
+
+    def __call__(self, *inputs):
+        for dst, src in zip(self.inputs, inputs):
+            dst.copy_(src)
+        self.graph.replay()
+        return self.output
+
+
+def _replayed(fn, *inputs):
+    """fn, replayed from a CUDA graph (_Replay) when its inputs are on the
+    card."""
+    return _Replay(fn, *inputs) if inputs[0].is_cuda else fn
+
+
+def _march_lanes(batch_step, lanes, attempts, finalize, ckpt_every):
+    """Run the RUNNING lanes for up to `attempts` iterations, re-gathering
+    them every _COMPACT_EVERY iterations; batch_step(sub) gives the step
+    (lanes -> lanes) of each gathered batch. Returns the march's results
+    (y [N, 8], stop, steps, ev_kind, ev_data, ev_count, ev_overflow, and
+    the checkpoints [S, 8, N] when ckpt_every > 0). The checkpoint rows go
+    by the global iteration count."""
     k_ckpt = int(ckpt_every)
     if k_ckpt:
         ckpt = lanes.y.new_zeros((-(-attempts // k_ckpt),) + tuple(lanes.y.shape))
@@ -442,6 +599,7 @@ def _march_lanes(step, lanes, attempts, finalize, ckpt_every):
         if idx.numel() == 0:
             break
         sub = _take(lanes, idx)
+        step = batch_step(sub)
         for j in range(it, min(it + _COMPACT_EVERY, attempts)):
             if k_ckpt and j % k_ckpt == 0:
                 # The pre-step state; a lane that stopped earlier in this
@@ -605,7 +763,7 @@ def _bl_rk4_delta(c, e, l_z, q, inv_e, r_plus, y):
     k2 = _bl_rhs(radius, a, e, l_z, q, y + 0.5 * h * k1)
     k3 = _bl_rhs(radius, a, e, l_z, q, y + 0.5 * h * k2)
     k4 = _bl_rhs(radius, a, e, l_z, q, y + h * k3)
-    return (h / h.new_tensor(6.0)) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    return (h / h.new_full((), 6.0)) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
 
 
 class _BLLanes(NamedTuple):
@@ -626,12 +784,14 @@ class _BLLanes(NamedTuple):
     inv_e: torch.Tensor
 
 
-def _bl_plain_step(c, lanes, discs, vols=()):
-    """One BL march iteration over `lanes`; stopped lanes stay frozen."""
+def _bl_plain_step(c, lanes, discs, spheres=(), vols=(), delta_fn=None):
+    """One BL march iteration over `lanes`; stopped lanes stay frozen.
+    delta_fn(y), when given, stands in for _bl_rk4_delta on these lanes'
+    (E, L_z, Q) (a replay of it: _replayed)."""
     y, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, comp, e, l_z, q, inv_e = lanes
     radius, a = c["radius"], c["a"]
     active = stop == integ.RUNNING
-    delta = _bl_rk4_delta(c, e, l_z, q, inv_e, c["r_plus"], y)
+    delta = (delta_fn or (lambda yy: _bl_rk4_delta(c, e, l_z, q, inv_e, c["r_plus"], yy)))(y)
     y_new, comp = _update(c, active, y, delta, comp)
 
     pos_finite = torch.all(torch.isfinite(y_new[0:4]), dim=0)
@@ -661,6 +821,15 @@ def _bl_plain_step(c, lanes, discs, vols=()):
             ev_count, ev_ovf = _store_disc_events(
                 discs, crossing, px, py, p_interp, seg, ev_kind, ev_data, ev_count, ev_ovf
             )
+    if spheres:
+        cand = _sphere_candidates_bl(spheres, a, active, y, y_new)
+        if bool(cand.any()):
+            p_prev = _bl_momentum(radius, a, e, l_z, y)
+            p_new = _bl_momentum(radius, a, e, l_z, y_new)
+            ev_count, ev_ovf = _store_sphere_events(
+                spheres, cand, _bl_embed3(a, y), _bl_embed3(a, y_new), p_prev, p_new, ev_kind, ev_data,
+                ev_count, ev_ovf,
+            )
     if vols:
         # The embedded chord's z = r cos θ is linear between its ends.
         cand = _vol_candidates(vols, active, y[1] * torch.cos(y[2]), y_new[1] * torch.cos(y_new[2]))
@@ -671,7 +840,7 @@ def _bl_plain_step(c, lanes, discs, vols=()):
                 vols, cand, _bl_embed3(a, y), _bl_embed3(a, y_new), p_prev, p_new, ev_kind, ev_data,
                 ev_count, ev_ovf,
             )
-    if discs and c["opaque_stop"]:
+    if (discs or spheres) and c["opaque_stop"]:
         stop_new = torch.where(
             (stop_new == integ.RUNNING) & (ev_count > 0), integ.SATURATED, stop_new
         )
@@ -703,6 +872,7 @@ def march_bl_plain(
                          r_ref_scale, opaque_stop, compensated, dtype, device)
     c["half_pi"] = torch.tensor(math.pi / 2, dtype=dtype, device=device)
     discs = _rounded_discs(discs, dtype)
+    spheres = tuple(spheres)
     y = _lane_major_copy(y0)
     # Copies: the march writes the lanes' fields back in place.
     e, l_z, q = (v.detach().clone() for v in (e, l_z, q))
@@ -712,7 +882,12 @@ def march_bl_plain(
         *_event_buffers(n, dtype, device, int(max_events)), torch.zeros_like(y), e, l_z, q,
         1.0 / torch.clamp(torch.abs(e), min=1e-12),
     )
-    return _march_lanes(lambda sub: _bl_plain_step(c, sub, discs, vols), lanes, attempts, finalize, ckpt_every)
+
+    def batch_step(sub):
+        delta = _replayed(lambda yy: _bl_rk4_delta(c, sub.e, sub.l_z, sub.q, sub.inv_e, c["r_plus"], yy), sub.y)
+        return lambda s: _bl_plain_step(c, s, discs, spheres, vols, delta)
+
+    return _march_lanes(batch_step, lanes, attempts, finalize, ckpt_every)
 
 
 # ---------------------------------------------------------------------------
@@ -720,8 +895,9 @@ def march_bl_plain(
 # ---------------------------------------------------------------------------
 
 # The two kernels: K1 (Kerr-Schild) and K3 (Boyer-Lindquist). Entry points
-# take (y0[, e, l_z, q], n, outputs..., ckpt, params, discs, n_discs, vols,
-# n_vols, ints, stream) and return the CUDA error code of the launch.
+# take (y0[, e, l_z, q], n, outputs..., ckpt, params, discs, n_discs,
+# spheres, n_spheres, vols, n_vols, ints, stream) and return the CUDA error
+# code of the launch.
 _KERNELS = {
     False: ("kerr_rk4_march", "kerr_rk4_march.cu"),
     True: ("kerr_bl_rk4_march", "kerr_bl_march.cu"),
@@ -742,14 +918,15 @@ def _entry(bl, dtype):
         fn.argtypes = [p] * (4 if bl else 1) + [
             ctypes.c_int64, p, p, p, p, p, p, p, p,
             ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double), ctypes.c_int,
-            ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.POINTER(ctypes.c_int), p,
+            ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), p,
         ]
         fn.restype = ctypes.c_int
         _bound[(bl, dtype)] = fn
     return fn
 
 
-def _march_cuda(y0, consts, params, discs, vols, max_steps, opaque_stop, attempts, finalize,
+def _march_cuda(y0, consts, params, discs, spheres, vols, max_steps, opaque_stop, attempts, finalize,
                 compensated, ckpt_every, max_events):
     """Allocate the outputs and launch K1 (consts empty) or K3 (consts =
     (e, l_z, q)); params are the kernel's float parameters in its order."""
@@ -772,6 +949,13 @@ def _march_cuda(y0, consts, params, discs, vols, max_steps, opaque_stop, attempt
     disc_rows = (ctypes.c_double * (3 * MAX_DISCS))(
         *[float(v) for d in discs for v in (d.inner, d.outer, d.kind)]
     )
+    # R² and |c| in double, as the plain version's Python floats are.
+    sphere_rows = (ctypes.c_double * (7 * MAX_SPHERES))(
+        *[float(v) for s in spheres for v in (
+            s.radius, s.cx, s.cy, s.cz, s.radius * s.radius,
+            math.sqrt(s.cx * s.cx + s.cy * s.cy + s.cz * s.cz), s.kind,
+        )]
+    )
     vol_rows = (ctypes.c_double * (4 * MAX_VOLS))(
         *[float(v) for vs in vols for v in (vs.inner, vs.outer, vs.cap_h, vs.kind)]
     )
@@ -790,7 +974,7 @@ def _march_cuda(y0, consts, params, discs, vols, max_steps, opaque_stop, attempt
             y0.data_ptr(), *(v.data_ptr() for v in consts), n, y_out.data_ptr(), stop.data_ptr(),
             steps.data_ptr(), ev_kind.data_ptr(), ev_data.data_ptr(), ev_count.data_ptr(),
             ev_ovf.data_ptr(), None if ckpt is None else ckpt.data_ptr(), params, disc_rows,
-            len(discs), vol_rows, len(vols), ints, stream.cuda_stream,
+            len(discs), sphere_rows, len(spheres), vol_rows, len(vols), ints, stream.cuda_stream,
         )
         if err != 0:
             raise RuntimeError(f"{_KERNELS[bl][0]} kernel launch failed: CUDA error {err}")
@@ -820,10 +1004,11 @@ def kerr_rk4_march(
     checkpoints, ops/geodesic_adjoint.py; rows with seg·K ≥ steps[lane] are
     undefined).
 
-    vols (VolSpec) records bounding-volume crossings of z-axis volumetric
-    discs after the disc events of a step. r_safe > 0 enables the far-field
-    lever; opaque_stop stops a lane at its first disc event (exact when
-    every texture is opaque); `attempts`
+    discs (DiscSpec) records thin-disc crossings, spheres (SphereSpec)
+    sphere surface crossings, vols (VolSpec) bounding-volume crossings of
+    z-axis volumetric discs, in that order within a step. r_safe > 0
+    enables the far-field lever; opaque_stop stops a lane at its first disc
+    or sphere event (exact when every texture is opaque); `attempts`
     bounds the iterations (default max_steps); finalize=False leaves
     unfinished lanes RUNNING instead of BUDGET; compensated selects the
     Kahan state update. A CUDA tensor goes through the kernel, a CPU tensor
@@ -831,8 +1016,8 @@ def kerr_rk4_march(
     _check_args(y0, discs, spheres, vols, resume, ckpt_every, max_events)
     if y0.device.type == "cpu":
         return march_plain(
-            radius, a, horizon_epsilon, y0, h0, max_steps, max_radius, discs=discs, vols=vols,
-            h_min_frac=h_min_frac, r_ref_scale=r_ref_scale, r_safe=r_safe,
+            radius, a, horizon_epsilon, y0, h0, max_steps, max_radius, discs=discs, spheres=spheres,
+            vols=vols, h_min_frac=h_min_frac, r_ref_scale=r_ref_scale, r_safe=r_safe,
             opaque_stop=opaque_stop, attempts=attempts, finalize=finalize,
             ckpt_every=ckpt_every, compensated=compensated, max_events=max_events,
         )
@@ -840,8 +1025,8 @@ def kerr_rk4_march(
         raise ValueError(f"unsupported device {y0.device}")
     attempts = max_steps if attempts is None else int(attempts)
     params = (radius, a, horizon_epsilon, h0, max_radius, h_min_frac, r_ref_scale, r_safe)
-    return _march_cuda(y0, (), params, tuple(discs), tuple(vols), max_steps, opaque_stop, attempts,
-                       finalize, compensated, int(ckpt_every), int(max_events))
+    return _march_cuda(y0, (), params, tuple(discs), tuple(spheres), tuple(vols), max_steps, opaque_stop,
+                       attempts, finalize, compensated, int(ckpt_every), int(max_events))
 
 
 def kerr_bl_rk4_march(
@@ -853,16 +1038,17 @@ def kerr_bl_rk4_march(
     (t, r, θ, φ, v_r, v_θ, 0, 0) with their conserved E, L_z, Q [N].
 
     Same options and results as `kerr_rk4_march`, without the far-field
-    lever. Disc and volume events record the Kerr-Schild embedding of the
-    crossing point, the interpolated BL contravariant momentum and the
-    embedded segment (volume roots are found on the embedded chord). A
+    lever. Disc, sphere and volume events record the Kerr-Schild embedding
+    of the crossing point, the interpolated BL contravariant momentum and
+    the embedded segment (sphere and volume roots are found on the embedded
+    chord, after a near test in BL). A
     CUDA tensor goes through the kernel csrc/kerr_bl_march.cu,
     a CPU tensor through `march_bl_plain`."""
     _check_bl_args(y0, e, l_z, q, discs, spheres, vols, resume, ckpt_every, max_events)
     if y0.device.type == "cpu":
         return march_bl_plain(
             radius, a, horizon_epsilon, y0, e, l_z, q, h0, max_steps, max_radius, discs=discs,
-            vols=vols, h_min_frac=h_min_frac, r_ref_scale=r_ref_scale, opaque_stop=opaque_stop,
+            spheres=spheres, vols=vols, h_min_frac=h_min_frac, r_ref_scale=r_ref_scale, opaque_stop=opaque_stop,
             attempts=attempts, finalize=finalize, compensated=compensated, ckpt_every=ckpt_every,
             max_events=max_events,
         )
@@ -870,5 +1056,5 @@ def kerr_bl_rk4_march(
         raise ValueError(f"unsupported device {y0.device}")
     attempts = max_steps if attempts is None else int(attempts)
     params = (radius, a, horizon_epsilon, h0, max_radius, h_min_frac, r_ref_scale)
-    return _march_cuda(y0, (e, l_z, q), params, tuple(discs), tuple(vols), max_steps, opaque_stop,
-                       attempts, finalize, compensated, int(ckpt_every), int(max_events))
+    return _march_cuda(y0, (e, l_z, q), params, tuple(discs), tuple(spheres), tuple(vols), max_steps,
+                       opaque_stop, attempts, finalize, compensated, int(ckpt_every), int(max_events))

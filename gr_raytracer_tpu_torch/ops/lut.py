@@ -11,10 +11,13 @@ import torch
 
 def uniform_interp(x, x0, dx, values):
     """Linear interpolation of `values` sampled at x0 + k·dx, clamped at the
-    ends. x: [...] queries; values: [L] or [L, C]. Returns [...] or [..., C]."""
+    ends. x: [...] queries; values: [L] or [L, C]. Returns [...] or [..., C].
+    A NaN query (a table on a NaN grid: the Novikov-Thorne table of a hole
+    with r_s = 0) reads index 0, as XLA's float-to-int conversion does, and
+    interpolates to NaN."""
     length = values.shape[0]
     t = (x - x0) / dx
-    idx = torch.clamp(torch.floor(t), 0, length - 2).to(torch.int64)
+    idx = torch.nan_to_num(torch.clamp(torch.floor(t), 0, length - 2), nan=0.0).to(torch.int64)
     frac = torch.clamp(t - idx, 0.0, 1.0)
     lo = values[idx]
     hi = values[idx + 1]

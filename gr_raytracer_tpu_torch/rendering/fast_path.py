@@ -1,11 +1,12 @@
 """Kernel path: full-scene tracing through the RK4 marches (port of the
-disc and volumetric parts of gr_raytracer_tpu/rendering/fast_path.py).
+disc, sphere and volumetric parts of gr_raytracer_tpu/rendering/fast_path.py).
 
 Applies to Kerr (Kerr-Schild Cartesian, the K1 march) and to KerrBL and
 Schwarzschild (the Mino-time K3 march; Schwarzschild rides it as KerrBL
-with a = 0, whose chart is its spherical one) with thin discs and z-axis
-volumetric discs: kerr.toml, kerr-bl.toml, the flagship preset and the
-volumetric scenes. Integration and crossing detection run in the march
+with a = 0, whose chart is its spherical one) with thin discs, spheres and
+z-axis volumetric discs: kerr.toml, kerr-bl.toml, the sphere scenes
+(schwarzschild.toml among them), the flagship preset and the volumetric
+scenes. Integration and crossing detection run in the march
 (ops/geodesic_march.py); shading and the alpha fold are the deferred passes
 of rendering/scene.py, with the scene's own geometry. A scene whose one
 object is a volumetric disc goes through `trace_rays_fast_vol`: the
@@ -19,6 +20,7 @@ five medium parameters through K6 and K7 (ops/volumetric_adjoint.py).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -27,6 +29,7 @@ from gr_raytracer_tpu_torch.geometry.kerr import Kerr
 from gr_raytracer_tpu_torch.geometry.kerr_bl import KerrBL
 from gr_raytracer_tpu_torch.geometry.schwarzschild import Schwarzschild
 from gr_raytracer_tpu_torch.objects.disc import Disc
+from gr_raytracer_tpu_torch.objects.sphere import Sphere
 from gr_raytracer_tpu_torch.objects.volumetric_disc import CAP_HEIGHT_SIGMAS, VolumetricDisc
 from gr_raytracer_tpu_torch.ops import geodesic_march as gm
 from gr_raytracer_tpu_torch.ops import volumetric_march as vm
@@ -41,10 +44,9 @@ DEEP_BUDGET_COMPENSATION = 100_000
 
 
 def supports_scene(scene) -> bool:
-    """Kerr, KerrBL or Schwarzschild with thin discs and z-axis volumetric
-    discs (the part of the JAX fast path that is ported so far; spheres are
-    not)."""
-    supported = lambda o: isinstance(o, Disc) or (isinstance(o, VolumetricDisc) and o.axis_is_z())
+    """Kerr, KerrBL or Schwarzschild with thin discs, spheres and z-axis
+    volumetric discs."""
+    supported = lambda o: isinstance(o, (Disc, Sphere)) or (isinstance(o, VolumetricDisc) and o.axis_is_z())
     return isinstance(scene.geometry, (Kerr, KerrBL, Schwarzschild)) and all(
         supported(o) for o in scene.objects
     )
@@ -79,11 +81,12 @@ def _impact_proxy(geometry, x, p):
 
 class KernelSpec(NamedTuple):
     """Static march configuration read once from a concrete scene: the
-    march geometry's parameters as host floats, the disc and bounding-volume
-    specs, the far-field safe radius (Kerr-Schild only), whether every
-    texture is opaque (the first hit saturates the alpha fold), whether the
-    march is the Mino-time one, and the raymarch spec when the scene's one
-    object is a volumetric disc the raymarch supports."""
+    march geometry's parameters as host floats, the disc, sphere and
+    bounding-volume specs, the far-field safe radius (Kerr-Schild only),
+    whether every texture is opaque (the first hit saturates the alpha
+    fold), whether the march is the Mino-time one, and the raymarch spec
+    when the scene's one object is a volumetric disc the raymarch
+    supports."""
 
     radius: float
     a: float
@@ -94,18 +97,25 @@ class KernelSpec(NamedTuple):
     mino: bool
     vols: tuple = ()
     vol_spec: Optional[vm.VolSpec] = None
+    spheres: tuple = ()
 
 
 def scene_kernel_spec(scene) -> KernelSpec:
     if not supports_scene(scene):
         raise NotImplementedError(
-            "the kernel path supports Kerr, KerrBL and Schwarzschild with thin discs and z-axis "
-            "volumetric discs only; other scenes are not yet ported"
+            "the kernel path supports Kerr, KerrBL and Schwarzschild with thin discs, spheres and "
+            "z-axis volumetric discs only; other scenes are not yet ported"
         )
     host = lambda v: float(torch.as_tensor(v).detach())  # frozen: no gradient
-    discs, vols = [], []
+    discs, spheres, vols = [], [], []
     extent = 0.0
     for idx, o in enumerate(scene.objects):
+        if isinstance(o, Sphere):
+            cx, cy, cz = (host(v) for v in o.center[1:4])
+            spheres.append(gm.SphereSpec(host(o.radius), cx, cy, cz, idx))
+            # A sphere reaches |c| + R from the origin.
+            extent = max(extent, math.sqrt(cx * cx + cy * cy + cz * cz) + host(o.radius))
+            continue
         if isinstance(o, VolumetricDisc):
             vols.append(gm.VolSpec(host(o.inner_radius), host(o.outer_radius),
                                    host(o.thickness) * CAP_HEIGHT_SIGMAS, idx))
@@ -124,7 +134,7 @@ def scene_kernel_spec(scene) -> KernelSpec:
         vol_spec = vm.build_vol_spec(scene.objects[0], scene.geometry)
     return KernelSpec(
         host(geometry.radius), host(geometry.a), host(geometry.horizon_epsilon),
-        tuple(discs), r_safe, opaque, isinstance(geometry, KerrBL), tuple(vols), vol_spec,
+        tuple(discs), r_safe, opaque, isinstance(geometry, KerrBL), tuple(vols), vol_spec, tuple(spheres),
     )
 
 
@@ -168,7 +178,7 @@ def _run_kernel(spec: KernelSpec, cfg, solver, y0):
             spec.radius, spec.a, spec.horizon_epsilon, y0, solver.e.contiguous(),
             solver.l_z.contiguous(), solver.q.contiguous(), h0=0.01,
             max_steps=2 * cfg.max_steps, max_radius=cfg.max_radius, discs=spec.discs,
-            vols=spec.vols, opaque_stop=spec.opaque, compensated=compensated,
+            spheres=spec.spheres, vols=spec.vols, opaque_stop=spec.opaque, compensated=compensated,
             max_events=cfg.max_events,
         )
     return gm.kerr_rk4_march(
@@ -180,6 +190,7 @@ def _run_kernel(spec: KernelSpec, cfg, solver, y0):
         max_steps=cfg.max_steps,
         max_radius=cfg.max_radius,
         discs=spec.discs,
+        spheres=spec.spheres,
         vols=spec.vols,
         r_safe=spec.r_safe,
         opaque_stop=spec.opaque,
@@ -308,8 +319,12 @@ def supports_diff(scene) -> bool:
     """Reverse mode through the march (ops/geodesic_adjoint.py) covers Kerr,
     KerrBL and Schwarzschild with thin discs whose textures are all opaque:
     slot-0 shading is then exact, and the adjoint takes one payload
-    cotangent per lane at its last step. Sphere scenes are not yet ported."""
-    return bool(scene.objects) and supports_scene(scene) and scene_kernel_spec(scene).opaque
+    cotangent per lane at its last step. A scene with a sphere is refused:
+    the reverse sweep has no sphere payload yet."""
+    return (
+        bool(scene.objects) and supports_scene(scene) and not any(isinstance(o, Sphere) for o in scene.objects)
+        and scene_kernel_spec(scene).opaque
+    )
 
 
 def trace_rays_fast_diff(scene, positions, momenta, spec=None, k_ckpt=None):
@@ -329,6 +344,8 @@ def trace_rays_fast_diff(scene, positions, momenta, spec=None, k_ckpt=None):
         if not supports_diff(scene):
             raise ValueError("scene shape unsupported by the differentiable kernel path")
         spec = scene_kernel_spec(scene)
+    if spec.spheres:
+        raise ValueError("the differentiable kernel path has no sphere payload yet")
     solver, y0, freq, inverse = _prepare_march(scene, positions, momenta)
     cfg = scene.integration
     geometry = _march_geometry_of(scene)

@@ -169,7 +169,16 @@ def test_turning_safe_sqrt_gradient_is_zero_at_and_below_the_floor():
 
 
 def test_sphere_scene_still_raises_config_error():
-    cfg = tcfg.load_config(f"{REPO}/scene-definitions/schwarzschild.toml")
-    with pytest.raises(tcfg.ConfigError):
-        tcfg.create_scene(cfg, tcfg.RenderOptions(width=4, height=4, **BL_CAMERA), F64, CPU)
+    """schwarzschild.toml, whose loader raised before spheres were ported,
+    now builds; its Sphere equals the JAX loader's."""
+    path = f"{REPO}/scene-definitions/schwarzschild.toml"
+    scene = tcfg.create_scene(tcfg.load_config(path), tcfg.RenderOptions(width=4, height=4, **BL_CAMERA), F64, CPU)
+    j_cfg = jcfg.load_config(path)
+    bitmap = type("Textures", (), {"build": lambda self, tex: tex["kind"]})()
+    _, j_sphere = jcfg.build_objects(j_cfg, jcfg.build_geometry(j_cfg, jnp.float64), bitmap, jnp.float64)
+    t_sphere = scene.objects[1]
+    assert type(t_sphere).__name__ == type(j_sphere).__name__ == "Sphere"
+    for name in ("radius", "center", "temperature"):
+        _close(getattr(t_sphere, name), getattr(j_sphere, name), 0.0)
+    np.testing.assert_array_equal(t_sphere.center.numpy(), [0.0, 0.0, 0.0, 20.0])
     assert math.isclose(BL_CAMERA["theta"], -3.14159)

@@ -132,11 +132,16 @@ def test_bl_rhs_and_momentum_match_jax():
 
 
 def test_bl_wrapper_rejects_unported_options():
+    """resume is not ported; spheres are, up to MAX_SPHERES SphereSpecs."""
     y0 = torch.zeros((4, 8), dtype=F64)
     c = torch.ones(4, dtype=F64)
     args = (1.0, 0.45, 1e-3, y0, c, c, c, 0.01, 10, 40.0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         gm.kerr_bl_rk4_march(*args, spheres=(object(),))
+    sphere = gm.SphereSpec(2.0, 0.0, 0.0, 0.0, 0)
+    with pytest.raises(NotImplementedError):
+        gm.kerr_bl_rk4_march(*args, spheres=(sphere,) * (gm.MAX_SPHERES + 1))
+    assert gm.kerr_bl_rk4_march(*args, spheres=(sphere,) * gm.MAX_SPHERES)[0].shape == (4, 8)
     with pytest.raises(NotImplementedError):
         gm.kerr_bl_rk4_march(*args, vols=(gm.VolSpec(3.0, 6.0, 0.3, 0),) * (gm.MAX_VOLS + 1))
     with pytest.raises(NotImplementedError):

@@ -90,10 +90,15 @@ def test_rhs_matches_jax_analytic_and_autodiff():
 
 
 def test_wrapper_rejects_unported_options():
+    """resume is not ported; spheres are, up to MAX_SPHERES SphereSpecs."""
     y0 = torch.zeros((4, 8), dtype=torch.float64)
     args = (1.0, 0.45, 1e-3, y0, 1.0, 10, 40.0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         gm.kerr_rk4_march(*args, spheres=(object(),))
+    sphere = gm.SphereSpec(2.0, 0.0, 0.0, 0.0, 0)
+    with pytest.raises(NotImplementedError):
+        gm.kerr_rk4_march(*args, spheres=(sphere,) * (gm.MAX_SPHERES + 1))
+    assert gm.kerr_rk4_march(*args, spheres=(sphere,) * gm.MAX_SPHERES)[0].shape == (4, 8)
     with pytest.raises(NotImplementedError):
         gm.kerr_rk4_march(*args, resume=gm.kerr_rk4_march(*args))
     with pytest.raises(ValueError):

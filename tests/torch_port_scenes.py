@@ -46,6 +46,48 @@ temperature = 4000.0
 [objects.Disc.texture.BlackBody]
 beaming_exponent = 3.0
 """
+# The disc and sphere scenes of tests/test_pallas.py: Kerr-Schild
+# (test_kerr_sphere_kernel_parity, with KERR_CAMERA) and Schwarzschild
+# (test_bl_kernel_sphere_parity, with the camera turned by π); both a disc
+# 3–5 and a sphere of radius 2 at the origin, checker textures.
+_SPHERE_SCENE = """
+celestial_temperature = 0.0
+[celestial_texture.Checker]
+beaming_exponent = 0.0
+width = 18.0
+height = 9.0
+color1 = [40, 40, 120]
+color2 = [5, 5, 20]
+[geometry_type.{geometry}]
+radius = {radius}
+{spin}horizon_epsilon = 1e-3
+[[objects]]
+[objects.Disc]
+inner_radius = 3.0
+outer_radius = 5.0
+temperature = 2000.0
+[objects.Disc.texture.Checker]
+beaming_exponent = 0.0
+width = 6.0
+height = 6.0
+color1 = [255, 120, 0]
+color2 = [120, 40, 0]
+[[objects]]
+[objects.Sphere]
+radius = 2.0
+position = [0.0, 0.0, 0.0]
+temperature = 2000.0
+[objects.Sphere.texture.Checker]
+beaming_exponent = 0.0
+width = 6.0
+height = 6.0
+color1 = [255, 0, 0]
+color2 = [90, 0, 0]
+"""
+KERR_SPHERE_SCENE_TOML = _SPHERE_SCENE.format(geometry="Kerr", radius=0.4, spin="a = 0.15\n")
+SCHWARZSCHILD_SPHERE_SCENE_TOML = _SPHERE_SCENE.format(geometry="Schwarzschild", radius=0.5, spin="")
+# schwarzschild-sphere.toml's shape (r_s = 0) with the checker textures.
+FLAT_SPHERE_SCENE_TOML = _SPHERE_SCENE.format(geometry="Schwarzschild", radius=0.0, spin="")
 CPU = torch.device("cpu")
 F64 = torch.float64
 # The port tests run small tensors: one intra-op thread each keeps parallel
