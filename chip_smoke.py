@@ -102,9 +102,37 @@ non-zero on failure:
      whose first event is a sphere or a disc;
  26. phase 19's value and gradient in float64, beside the float32 one and
      the JAX package's (docs/gradient_bench.json "volumetric");
- 27. one JSON line {"kernels": [...]} with each kernel's launches, error
+ 27. K1 with checkpoints and sphere events against its plain version on
+     the 65,536 rays of the 256² Kerr disc and sphere frame of phase 29
+     (kerr-sphere.toml around a hole of r_s = 1, a = 0.499; budget 2,000),
+     float32 and float64, with a checkpoint every 16 steps (the frame's
+     rays end within ~60): outputs and the checkpoint rows a lane reaches
+     must be equal, lanes must reach rows after row 0, and slot 0 must
+     hold sphere and disc events, each kind also past row 0;
+ 28. the reverse sweep K2 with the sphere payload against its plain
+     version on that march's checkpoints, with seeded cotangents, float64
+     and float32 (phase 6's bars), its error printed apart for the lanes
+     whose slot 0 is a sphere and those whose slot 0 is a disc;
+ 29. the Kerr disc and sphere gradient path (the probe of
+     tests/test_adjoint.py's sphere_loss_fn at 256²): image_loss must be 0
+     at the target parameters; at a = 0.30, ∂a, ∂radius and ∂dth of the
+     image loss over the pixels that are smooth in the parameters (the
+     same class, stop code and step count, and no jump of a texel within
+     the step), float64 and float32, must agree with a central difference
+     of the float64 render (float64 to 5e-4 of it, float32 to 1e-3 of the
+     mean |per-pixel term|); then 10 steps of
+     inverse.fit of the spin in float32: target at a = 0.499, start 0.30,
+     image_loss, Adam 5e-2; the radius and a tilt of the camera rays stay
+     frozen and their gradients are printed; every gradient must be finite
+     and nonzero, the loss must fall, K1 and K2 must launch;
+ 30. `resume`: K1 on phase 3's kerr.toml chunk and K3 on phase 8's kerr-bl
+     chunk, float32, through fast_path._run_kernel, in two legs (the first
+     of half the slowest lane's steps, finalize off, leaving lanes
+     RUNNING) against one shot: all seven results equal; each leg against
+     its plain version (K3's over legs of 2,000 iterations);
+ 31. one JSON line {"kernels": [...]} with each kernel's launches, error
      against its plain version, times and bound;
- 28. the last line: {"ok": true, "device": {...}}.
+ 32. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -262,6 +290,28 @@ SPHERE_TEST_SCENES = {
 }
 SPHERE_TEST_OPTIONS = dict(max_steps=3000, max_radius=40.0)
 KERR_CAMERA_KW = dict(camera_position=(-10.0, 0.0, -0.5), theta=1.52, psi=-1.57)
+# The Kerr disc and sphere gradient path: the probe of tests/test_adjoint.py
+# (sphere_loss_fn) at the KS fit's size and budget: kerr-sphere.toml built
+# as the file says (r_s = 0: the camera's tetrad is flat), then given a hole
+# of r_s = 1, a = 0.499; the framing puts both kinds in slot 0.
+SPHERE_FIT_SIZE = 256
+SPHERE_FIT_BUDGET = 2000
+SPHERE_FIT_RADIUS = 30.0
+SPHERE_FIT_CAMERA = dict(camera_position=(-10.0, 0.0, -2.5), theta=1.35, psi=-1.57)
+SPHERE_FIT_HOLE = (1.0, 0.499)  # radius, a: the target
+SPHERE_FIT_START = 0.30
+SPHERE_FIT_STEPS = 10
+SPHERE_FIT_LR = 5e-2
+SPHERE_K_CKPT = 16  # phases 27-28: most lanes of the frame take 20-59 steps
+SPHERE_FD_STEP = 1e-6  # central difference of the float64 render
+# ∂ of the masked image loss against that difference: float64 relative to
+# the difference, at the JAX package's bar for bitmap textures
+# (tests/test_adjoint.py); float32 relative to the mean |per-pixel term|,
+# at K2's float32 bar.
+SPHERE_FD_BARS = {"float64": 5e-4, "float32": 1e-3}
+# Phase 30: the iterations of each leg of K3's comparison with its plain
+# version (the plain march costs milliseconds an iteration).
+BL_RESUME_COMPARE_ATTEMPTS = 2000
 FP32_LANES_PER_SM = 128  # Hopper: FP32 units per SM
 FP64_LANES_PER_SM = 64
 INT32_LANES_PER_SM = 64  # Hopper: INT32 units per SM
@@ -363,29 +413,64 @@ def count_step_flops(spheres=()):
     return count_ops(lambda: gm._plain_step(c, lanes, (), spheres))["float"]
 
 
-def count_vjp_flops():
-    """Arithmetic operations of one reverse step of the sweep, per ray: the
-    plain step map with its slot-0 payload (ops/geodesic_adjoint.py
-    _step_with_payload) and its VJP by torch.autograd, on one lane."""
+def _ks_sweep_inputs():
+    """One lane's inputs of the Kerr-Schild sweep's step map: y, radius, a
+    (leaves that require grad) and the active mask."""
     import torch
-
-    from gr_raytracer_tpu_torch.ops import geodesic_adjoint as gadj
-    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
 
     f64 = torch.float64
     y = _one_lane().requires_grad_(True)
     r = torch.tensor([1.0], dtype=f64, requires_grad=True)
     a = torch.tensor([0.45], dtype=f64, requires_grad=True)
-    disc = (gm.DiscSpec(1.0, 6.0, 0),)
+    return y, r, a, torch.ones(1, dtype=torch.bool)
+
+
+def count_vjp_flops(payload=None, spheres=()):
+    """Arithmetic operations of one reverse step of the sweep, per ray, on
+    one lane: the plain step map (ops/geodesic_adjoint.py _masked_step) and
+    its VJP by torch.autograd. With `payload` "disc" or "sphere" (the first
+    of `spheres`), the step map with that slot-0 payload
+    (_step_with_payload) and its VJP: the sweep takes it once per hit lane,
+    at the lane's stored step, so the payload's own cost is the difference
+    from the plain count."""
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import geodesic_adjoint as gadj
+    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+
+    y, r, a, active = _ks_sweep_inputs()
 
     def vjp():
-        y_new, payload = gadj._step_with_payload(
-            disc, (), 1.0, 0.01, 10.0, 30.0, torch.zeros(1, dtype=torch.int32), r, a, y,
-            torch.ones(1, dtype=torch.bool),
-        )
-        torch.autograd.grad((y_new, payload), (r, a, y), (torch.ones_like(y_new), torch.ones_like(payload)))
+        if payload is None:
+            y_new = gadj._masked_step(r, a, 1.0, 0.01, 10.0, 30.0, y, active)
+            torch.autograd.grad(y_new, (r, a, y), torch.ones_like(y_new))
+            return
+        discs = (gm.DiscSpec(1.0, 6.0, 0),) if payload == "disc" else ()
+        sph = tuple(spheres[:1]) if payload == "sphere" else ()
+        kind0 = torch.full((1,), sph[0].kind if sph else 0, dtype=torch.int32)
+        y_new, out = gadj._step_with_payload(discs, sph, 1.0, 0.01, 10.0, 30.0, kind0, r, a, y, active)
+        torch.autograd.grad((y_new, out), (r, a, y), (torch.ones_like(y_new), torch.ones_like(out)))
 
     return count_ops(vjp)["float"]
+
+
+def count_sweep_flops(spheres=()):
+    """The operation counts of the Kerr-Schild sweep's bound, per ray:
+    "forward" (one re-forward step: the plain step map alone), "reverse"
+    (one reverse step: the step map and its VJP), and per slot-0 kind the
+    payload's extra cost at the stored step ("payload")."""
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import geodesic_adjoint as gadj
+
+    y, r, a, active = _ks_sweep_inputs()
+    with torch.no_grad():
+        forward = count_ops(lambda: gadj._masked_step(r, a, 1.0, 0.01, 10.0, 30.0, y, active))["float"]
+    reverse = count_vjp_flops()
+    payload = {"disc": count_vjp_flops("disc") - reverse}
+    if spheres:
+        payload["sphere"] = count_vjp_flops("sphere", spheres) - reverse
+    return {"forward": forward, "reverse": reverse, "payload": payload}
 
 
 def card_peak_flops(dtype):
@@ -584,19 +669,54 @@ def fit_frame_inputs(dtype):
     return fast_path.scene_kernel_spec(scene), y0.contiguous()
 
 
-def compare_march_ckpt(dtype, bl=False, attempts=None):
+def sphere_fit_scene(dtype):
+    """(scene, spec, x, p): the 256² Kerr disc and sphere frame of the
+    sphere gradient path (SPHERE_FIT_*) with its hole, and its camera
+    rays."""
+    import dataclasses
+
+    import torch
+
+    from gr_raytracer_tpu_torch import config
+    from gr_raytracer_tpu_torch.geometry.kerr import Kerr
+    from gr_raytracer_tpu_torch.rendering import camera as cam
+    from gr_raytracer_tpu_torch.rendering import fast_path
+
+    opts = config.RenderOptions(width=SPHERE_FIT_SIZE, height=SPHERE_FIT_SIZE, max_steps=SPHERE_FIT_BUDGET,
+                                max_radius=SPHERE_FIT_RADIUS, **SPHERE_FIT_CAMERA)
+    scene = config.create_scene(config.load_config(KERR_SPHERE_TOML), opts, dtype, torch.device("cuda"))
+    radius, a = (torch.tensor(v, dtype=dtype, device="cuda") for v in SPHERE_FIT_HOLE)
+    scene = dataclasses.replace(scene, geometry=Kerr(radius=radius, a=a,
+                                                     horizon_epsilon=scene.geometry.horizon_epsilon))
+    rr, cc = torch.meshgrid(
+        torch.arange(SPHERE_FIT_SIZE, dtype=dtype, device="cuda"),
+        torch.arange(SPHERE_FIT_SIZE, dtype=dtype, device="cuda"), indexing="ij",
+    )
+    x, p = cam.pixel_rays(scene.camera, rr.ravel(), cc.ravel())
+    return scene, fast_path.scene_kernel_spec(scene), x, p
+
+
+def compare_march_ckpt(dtype, bl=False, attempts=None, sphere=False, k_ckpt=K_CKPT):
     """K1 (K3 with `bl`) with checkpoints against its plain version on the
-    256² flagship fit frame (the BL fit frame) at its true parameters, both
-    bounded by `attempts` if given. Outputs and the checkpoint rows a lane
-    reaches must be equal. Returns (result dict, the whole march's outputs
-    with checkpoints (the kernel's when `attempts` bounds the comparison),
-    spec, the lanes' (E, L_z, Q) or ())."""
+    256² flagship fit frame (the BL fit frame; with `sphere`, the Kerr disc
+    and sphere frame) at its true parameters, both bounded by `attempts`
+    if given, with a checkpoint every `k_ckpt` steps. Outputs and the
+    checkpoint rows a lane reaches must be equal. Returns (result dict, the whole march's outputs with checkpoints (the
+    kernel's when `attempts` bounds the comparison), spec, the lanes' (E,
+    L_z, Q) or ())."""
     import torch
 
     from gr_raytracer_tpu_torch.ops import geodesic_march as gm
     from gr_raytracer_tpu_torch.rendering import fast_path
 
-    if bl:
+    if sphere:
+        scene, spec, x, p = sphere_fit_scene(dtype)
+        _, y0, _, _ = fast_path._prepare_march(scene, x, p)
+        consts = ()
+        kw = dict(h0=1.0, max_steps=SPHERE_FIT_BUDGET, max_radius=SPHERE_FIT_RADIUS, r_safe=spec.r_safe,
+                  spheres=spec.spheres)
+        kernel, plain = gm.kerr_rk4_march, gm.march_plain
+    elif bl:
         scene, spec, x, p = bl_fit_scene(dtype)
         solver, y0, _, _ = fast_path._prepare_march(scene, x, p)
         consts = (solver.e.contiguous(), solver.l_z.contiguous(), solver.q.contiguous())
@@ -608,7 +728,7 @@ def compare_march_ckpt(dtype, bl=False, attempts=None):
         kw = dict(h0=1.0, max_steps=FIT_BUDGET, max_radius=40.0, r_safe=spec.r_safe)
         kernel, plain = gm.kerr_rk4_march, gm.march_plain
     args = (spec.radius, spec.a, spec.horizon_epsilon, y0.contiguous(), *consts)
-    kw.update(discs=spec.discs, opaque_stop=True, ckpt_every=K_CKPT)
+    kw.update(discs=spec.discs, opaque_stop=True, ckpt_every=k_ckpt)
     full = kernel(*args, **kw)
     torch.cuda.synchronize()
     kernel_ms, full = time_cuda(lambda: kernel(*args, **kw), reps=3)
@@ -620,27 +740,40 @@ def compare_march_ckpt(dtype, bl=False, attempts=None):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     steps = ref[2].long()
-    reached = torch.arange(ref[7].shape[0], device="cuda")[:, None] * K_CKPT < steps[None]
+    reached = torch.arange(ref[7].shape[0], device="cuda")[:, None] * k_ckpt < steps[None]
     same = lambda g, r: (g == r) | (g.isnan() & r.isnan()) if g.is_floating_point() else g == r
     rows_equal = bool(torch.where(reached[:, None, :], same(got[7], ref[7]), True).all())
     outputs_equal = all(bool(same(g, r).all()) for g, r in zip(got[:7], ref[:7]))
     res = {
         "kernel": "K3" if bl else "K1", "dtype": str(dtype).replace("torch.", ""),
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "budget": kw["max_steps"],
-        "attempts": kw.get("attempts", kw["max_steps"]),
+        "attempts": kw.get("attempts", kw["max_steps"]), "k_ckpt": k_ckpt, "lanes": int(steps.numel()),
         "outputs_equal": outputs_equal, "ckpt_rows_equal": rows_equal,
         "ckpt_rows_reached": int(reached.sum()), "max_steps_taken": int(steps.max()),
         "sum_steps": int(steps.sum()), "stops": torch.bincount(ref[1], minlength=8).tolist(),
     }
+    if spec.spheres:
+        kind0 = torch.where(ref[5] > 0, ref[3][:, 0], -1)
+        res["slot0_sphere"] = sum(int((kind0 == sp.kind).sum()) for sp in spec.spheres)
+        res["slot0_disc"] = sum(int((kind0 == d.kind).sum()) for d in spec.discs)
+        # Hit lanes whose stored step lies after their first checkpoint
+        # segment: the sweep replays their payload from a later row.
+        late = ref[2] > k_ckpt
+        res["slot0_sphere_after_row0"] = sum(int(((kind0 == sp.kind) & late).sum()) for sp in spec.spheres)
+        res["slot0_disc_after_row0"] = sum(int(((kind0 == d.kind) & late).sum()) for d in spec.discs)
     res["ok"] = outputs_equal and rows_equal
     return res, (ref if attempts is None else full), spec, consts
 
 
-def compare_adjoint(dtype, march, spec, flops_step, flops_vjp, consts=()):
+def compare_adjoint(dtype, march, spec, flops, consts=(), k_ckpt=K_CKPT):
     """K2 (K4 when `consts` holds the lanes' (E, L_z, Q)) against its plain
     version on the checkpoints of `march` (the fit frame's), with seeded
     cotangents on the final state of escaped lanes and on event slot 0 of
-    hit lanes; every grad_ok lane is held."""
+    hit lanes; every grad_ok lane is held. With spheres in `spec`, the
+    errors of the lanes whose slot 0 is a sphere and of those whose slot 0
+    is a disc are reported apart. `flops` holds count_sweep_flops's counts
+    (count_bl_sweep_flops's with `consts`); `k_ckpt` is the march's
+    checkpoint interval."""
     import torch
 
     from gr_raytracer_tpu_torch.ops import geodesic_adjoint as gadj
@@ -653,10 +786,10 @@ def compare_adjoint(dtype, march, spec, flops_step, flops_vjp, consts=()):
     ct_y = torch.randn((n, 8), generator=gen, dtype=dtype, device="cuda") * (stop == 2)[:, None]
     ct_ev = torch.randn((n, 12), generator=gen, dtype=dtype, device="cuda") * (has_ev != 0)[:, None]
     if consts:
-        cfg = gadj.SweepConfig(0.01, 2 * BL_FIT_BUDGET, spec.discs, 0.0, 0.02, 10.0, K_CKPT)
+        cfg = gadj.SweepConfig(0.01, 2 * BL_FIT_BUDGET, spec.discs, 0.0, 0.02, 10.0, k_ckpt)
         sweep, plain = gadj.bl_march_bwd, gadj.bl_march_bwd_plain
     else:
-        cfg = gadj.SweepConfig(1.0, FIT_BUDGET, spec.discs, spec.r_safe, 0.01, 10.0, K_CKPT)
+        cfg = gadj.SweepConfig(1.0, FIT_BUDGET, spec.discs, spec.r_safe, 0.01, 10.0, k_ckpt, spec.spheres)
         sweep, plain = gadj.ks_march_bwd, gadj.ks_march_bwd_plain
     args = (ckpt, ct_y.contiguous(), ct_ev.contiguous(), steps, grad_ok, has_ev, kind0,
             spec.radius, spec.a, *consts, cfg)
@@ -693,14 +826,29 @@ def compare_adjoint(dtype, march, spec, flops_step, flops_vjp, consts=()):
         "d_a": [float(got[-1].double().sum()), float(ref[-1].double().sum())],
         "d_radius_rel_err": rel(got[-2], ref[-2]), "d_a_rel_err": rel(got[-1], ref[-1]),
     }
-    # Bound: per grad_ok lane, `steps` re-forward steps and `steps` reverse
-    # steps of work; bytes are the checkpoint reads, the scratch traffic
-    # (each re-forward step writes its state, each reverse step reads it),
-    # the lane inputs and the outputs.
+    hit_kind = torch.where(has_ev != 0, kind0, -1)[ok_lanes]
+    groups = {"sphere": [sp.kind for sp in spec.spheres], "disc": [d.kind for d in spec.discs]}
+    hits = {g: torch.isin(hit_kind, torch.tensor(k, device=hit_kind.device)) for g, k in groups.items() if k}
+    if spec.spheres:
+        res["by_slot0_kind"] = {}
+        for group, sel in hits.items():
+            err = lane[sel]
+            res["by_slot0_kind"][group] = {
+                "lanes": int(sel.sum()),
+                "lanes_within_tol": float((err <= K2_BARS[name][0]).double().mean()) if err.numel() else None,
+                "lane_rel_err_max": float(err.max()) if err.numel() else None,
+            }
+    # Bound: per grad_ok lane, `steps` re-forward steps (the step map
+    # alone) and `steps` reverse steps (the step map and its VJP), and once
+    # per hit lane its slot-0 kind's payload; bytes are the checkpoint
+    # reads, the scratch traffic (each re-forward step writes its state,
+    # each reverse step reads it), the lane inputs and the outputs.
     elem = ckpt.element_size()
     s_ok = steps.long()[ok_lanes]
-    ops = float(s_ok.sum()) * (flops_step + flops_vjp)
-    ckpt_rows = float(((s_ok + K_CKPT - 1) // K_CKPT).sum())
+    ops = float(s_ok.sum()) * (flops["forward"] + flops["reverse"])
+    ops += sum(float(sel.sum()) * flops["payload"][g] for g, sel in hits.items())
+    res["payload_lanes"] = {g: int(sel.sum()) for g, sel in hits.items()}
+    ckpt_rows = float(((s_ok + k_ckpt - 1) // k_ckpt).sum())
     bytes_moved = ((ckpt_rows * 8 + 2.0 * 8 * float(s_ok.sum())) * elem
                    + n * ((8 + 12 + 8 + 2 + 2 * len(consts)) * elem + 16))
     ops_ms = ops / card_peak_flops(dtype) * 1e3
@@ -893,10 +1041,11 @@ def count_bl_step_flops(spheres=()):
     return count_ops(lambda: gm._bl_plain_step(c, lanes, (), spheres))["float"]
 
 
-def count_bl_vjp_flops():
-    """Arithmetic operations of one reverse step of the BL sweep, per ray:
-    the plain step map with its slot-0 payload (_bl_step_with_payload) and
-    its VJP by torch.autograd, on one lane."""
+def count_bl_sweep_flops():
+    """count_sweep_flops for the BL sweep: one re-forward step
+    (_bl_masked_step), one reverse step (it and its VJP by torch.autograd)
+    and the disc payload's extra cost at the stored step
+    (_bl_step_with_payload and its VJP, less the reverse step)."""
     import torch
 
     from gr_raytracer_tpu_torch.ops import geodesic_adjoint as gadj
@@ -906,15 +1055,22 @@ def count_bl_vjp_flops():
     leaves = [torch.tensor([v], dtype=f64, requires_grad=True) for v in (1.0, 0.45, 1.0, 2.0, 5.0)]
     y = _bl_one_lane().requires_grad_(True)
     disc = (gm.DiscSpec(1.0, 15.0, 0),)
+    active = torch.ones(1, dtype=torch.bool)
+    step = lambda: gadj._bl_masked_step(*leaves[:2], 0.01, 0.02, 10.0, *leaves[2:], y, active)
 
-    def vjp():
-        y_new, payload = gadj._bl_step_with_payload(
-            disc, 0.01, 0.02, 10.0, torch.zeros(1, dtype=torch.int32), *leaves, y,
-            torch.ones(1, dtype=torch.bool),
-        )
-        torch.autograd.grad((y_new, payload), (*leaves, y), (torch.ones_like(y_new), torch.ones_like(payload)))
+    def vjp(with_payload):
+        if with_payload:
+            outs = gadj._bl_step_with_payload(disc, 0.01, 0.02, 10.0, torch.zeros(1, dtype=torch.int32), *leaves, y,
+                                              active)
+        else:
+            outs = (step(),)
+        torch.autograd.grad(outs, (*leaves, y), tuple(torch.ones_like(o) for o in outs))
 
-    return count_ops(vjp)["float"]
+    with torch.no_grad():
+        forward = count_ops(step)["float"]
+    reverse = count_ops(lambda: vjp(False))["float"]
+    return {"forward": forward, "reverse": reverse,
+            "payload": {"disc": count_ops(lambda: vjp(True))["float"] - reverse}}
 
 
 def bl_fit_scene(dtype):
@@ -1715,6 +1871,291 @@ def f64_gradient_phase(vol_fit):
     return grad64
 
 
+def sphere_renderer(dtype):
+    """(render, params) of the sphere gradient path in `dtype`: render(p)
+    gives the RaySamples of the 256² Kerr disc and sphere frame through
+    trace_rays_fast_diff at p = {radius, a, dth} (dth tilts the camera
+    rays' θ); params(a, grad) gives p at the target radius, spin a and
+    dth = 0."""
+    import dataclasses
+
+    import torch
+
+    from gr_raytracer_tpu_torch.geometry.kerr import Kerr
+    from gr_raytracer_tpu_torch.rendering import fast_path
+
+    scene, spec, x0, p0 = sphere_fit_scene(dtype)
+    horizon_eps = scene.geometry.horizon_epsilon
+
+    def render(p, mark=lambda name: None):
+        geometry = Kerr(radius=p["radius"], a=p["a"], horizon_epsilon=horizon_eps)
+        x = torch.cat([x0[:, :2], (x0[:, 2] + p["dth"])[:, None], x0[:, 3:]], dim=1)
+        mark("scene_build")
+        return fast_path.trace_rays_fast_diff(dataclasses.replace(scene, geometry=geometry), x, p0, spec=spec,
+                                              k_ckpt=K_CKPT)
+
+    def params(a, grad=False):
+        value = {"radius": SPHERE_FIT_HOLE[0], "a": a, "dth": 0.0}
+        return {k: torch.tensor(v, dtype=dtype, device="cuda", requires_grad=grad) for k, v in value.items()}
+
+    return render, params
+
+
+def sphere_gradient_check():
+    """Phase 29's check of the gradient's value. image_loss of the target
+    parameters' float32 render against the fit's target must be 0. At the
+    fit's start (a = SPHERE_FIT_START), ∂a, ∂radius and ∂dth of image_loss
+    over the pixels that are smooth in every parameter are held against
+    a central difference of the float64 render, step SPHERE_FD_STEP. A
+    pixel is smooth when its ray class, stop code and step count are the
+    same in every render below and its own central difference at the step
+    and at a tenth of it agree to 1e-3 (a texel or a class that changes
+    within the step is a jump, which the gradient leaves out). Bars: the
+    float64 gradient relative to the difference, the float32 one relative
+    to the mean |per-pixel term| of the difference (the sum cancels)."""
+    import math
+
+    import torch
+
+    from gr_raytracer_tpu_torch import inverse
+
+    keys = ("a", "radius", "dth")
+    steps = (SPHERE_FD_STEP, SPHERE_FD_STEP / 10)
+    renders = {dt: sphere_renderer(dt) for dt in (torch.float32, torch.float64)}
+    targets, samples, leaves = {}, {}, {}
+    for dt, (render, params) in renders.items():
+        with torch.no_grad():
+            targets[dt] = render(params(SPHERE_FIT_HOLE[1])).color
+        leaves[dt] = params(SPHERE_FIT_START, grad=True)
+        samples[dt] = render(leaves[dt])
+    with torch.no_grad():
+        render32, params32 = renders[torch.float32]
+        loss_at_target = float(inverse.image_loss(render32(params32(SPHERE_FIT_HOLE[1])).color,
+                                                  targets[torch.float32]))
+        render64, params64 = renders[torch.float64]
+        shifted = {}
+        for k in keys:
+            for h in steps:
+                for sign in (1, -1):
+                    p = params64(SPHERE_FIT_START)
+                    p[k] = p[k] + sign * h
+                    shifted[k, h, sign] = render64(p)
+    # image_loss is the mean of these per-pixel terms.
+    log_target = inverse.log_radiance(targets[torch.float64])
+    term = lambda s: ((inverse.log_radiance(s.color) - log_target) ** 2).mean(dim=1)
+    pixel_fd = {(k, h): (term(shifted[k, h, 1]) - term(shifted[k, h, -1])) / (2 * h) for k in keys for h in steps}
+    struct = lambda s: torch.stack([s.ray_class.long(), s.stop_code.long(), s.steps.long()])
+    ref = struct(samples[torch.float64])
+    keep = torch.ones_like(ref[0], dtype=torch.bool)
+    for s in (samples[torch.float32], *shifted.values()):
+        keep &= (struct(s) == ref).all(dim=0)
+    same_class = int(keep.sum())
+    for k in keys:
+        coarse, fine = pixel_fd[k, steps[0]], pixel_fd[k, steps[1]]
+        keep &= (coarse - fine).abs() <= 1e-3 * torch.maximum(coarse.abs(), fine.abs())
+    fd = {k: float(pixel_fd[k, steps[0]][keep].mean()) for k in keys}
+    scale = {k: float(pixel_fd[k, steps[0]][keep].abs().mean()) for k in keys}
+    res = {"loss_at_target_f32": loss_at_target, "a": SPHERE_FIT_START, "fd_step": SPHERE_FD_STEP,
+           "pixels": int(keep.numel()), "pixels_same_class": same_class, "pixels_kept": int(keep.sum()),
+           "central_difference_f64": fd, "mean_abs_pixel_term": scale}
+    ok = loss_at_target == 0.0 and res["pixels_kept"] >= 0.99 * res["pixels"]
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).replace("torch.", "")
+        loss = inverse.image_loss(samples[dt].color[keep], targets[dt][keep])
+        grads = dict(zip(keys, (float(g) for g in torch.autograd.grad(loss, [leaves[dt][k] for k in keys]))))
+        against = fd if dt == torch.float64 else scale
+        err = {k: abs(grads[k] - fd[k]) / max(abs(against[k]), 1e-300) for k in keys}
+        res[f"grad_{name}"] = grads
+        res[f"err_{name}"] = err
+        ok = ok and all(math.isfinite(grads[k]) and err[k] <= SPHERE_FD_BARS[name] for k in keys)
+    res["bars"] = SPHERE_FD_BARS
+    res["ok"] = ok
+    return res
+
+
+def sphere_gradient_phases():
+    """Phases 27-29: K1 with checkpoints and sphere events against its
+    plain version, K2 with the sphere payload against its plain version
+    (both with a checkpoint every SPHERE_K_CKPT steps, so that lanes
+    reach later rows), and the Kerr disc and sphere gradient: its value
+    against a central difference, then the 10-step spin fit; returns (K2's
+    comparisons by dtype, the fit's summary)."""
+    import math
+
+    import torch
+
+    from gr_raytracer_tpu_torch import inverse
+    from gr_raytracer_tpu_torch.ops import geodesic_adjoint as gadj
+    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+
+    phase("27. K1 with checkpoints and sphere events against its plain version")
+    marches, sweeps = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        r, marches[dtype], spec, _ = compare_march_ckpt(dtype, sphere=True, k_ckpt=SPHERE_K_CKPT)
+        print(json.dumps(r), flush=True)
+        if not r["ok"]:
+            fail(f"K1 with checkpoints and sphere events disagrees with its plain version: {r}")
+        if not (r["slot0_sphere"] > 0 and r["slot0_disc"] > 0):
+            fail(f"slot 0 of the sphere frame lacks a sphere or a disc event: {r}")
+        if not (r["ckpt_rows_reached"] > r["lanes"] and r["slot0_sphere_after_row0"] > 0
+                and r["slot0_disc_after_row0"] > 0):
+            fail(f"no lane of a kind reaches a checkpoint row after row 0 with its event: {r}")
+
+    phase("28. K2 with the sphere payload against its plain version")
+    sweep_flops = count_sweep_flops(spec.spheres)
+    print(f"flops per ray of the sweep (re-forward step, reverse step, payload at the stored step; counted): "
+          f"{json.dumps(sweep_flops)}")
+    for dtype in (torch.float64, torch.float32):
+        r = compare_adjoint(dtype, marches[dtype], spec, sweep_flops, k_ckpt=SPHERE_K_CKPT)
+        r["chunk"] = "kerr-sphere 256²"
+        sweeps[dtype] = r
+        print(json.dumps(r), flush=True)
+        if not r["ok"]:
+            fail(f"K2 with the sphere payload disagrees with its plain version: {r}")
+        if not all(g["lanes"] > 0 for g in r["by_slot0_kind"].values()):
+            fail(f"the K2 comparison lacks sphere or disc lanes: {r}")
+    del marches
+
+    phase("29. Kerr disc and sphere gradient path: its value, then 10 steps of the 256² spin fit")
+    check = sphere_gradient_check()
+    print(json.dumps({"gradient_check": check}), flush=True)
+    if not check["ok"]:
+        fail(f"the sphere gradient is not 0-loss at its target or disagrees with a central difference: {check}")
+    dt = torch.float32
+    sphere_render, as_params = sphere_renderer(dt)
+
+    def render(p, mark=lambda name: None):
+        return sphere_render(p, mark).color
+
+    with torch.no_grad():
+        target = render(as_params(SPHERE_FIT_HOLE[1]))
+    torch.cuda.synchronize()
+    rows = []
+    clock = [time.perf_counter()]
+
+    def callback(step, loss, params, grads):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rows.append({
+            "step": step, "loss": loss, "a": float(params["a"].detach()),
+            "grads": {k: float(g) for k, g in grads.items()}, "s": now - clock[0],
+            "k1_ms": sum(s.elapsed_time(e) for s, e in gm.launch_timer),
+            "k2_ms": sum(s.elapsed_time(e) for s, e in gadj.launch_timer),
+        })
+        gm.launch_timer.clear()
+        gadj.launch_timer.clear()
+        print(json.dumps(rows[-1]), flush=True)
+        clock[0] = time.perf_counter()
+
+    gm.launch_timer, gadj.launch_timer = [], []
+    gm.launches = gadj.launches = 0
+    _, losses = inverse.fit(render, as_params(SPHERE_FIT_START), target, trainable=("a",), steps=SPHERE_FIT_STEPS,
+                            learning_rate=SPHERE_FIT_LR, loss_fn=inverse.image_loss, callback=callback)
+    k1_launches, k2_launches = gm.launches, gadj.launches
+    gm.launch_timer = gadj.launch_timer = None
+    split, busy = fit_step_breakdown(render, inverse.image_loss, target, as_params(SPHERE_FIT_START))
+    mean = lambda key: sum(r[key] for r in rows) / len(rows)
+    fit = {
+        "frame": f"{SPHERE_FIT_SIZE}x{SPHERE_FIT_SIZE}", "max_steps": SPHERE_FIT_BUDGET, "steps": SPHERE_FIT_STEPS,
+        "k1_launches": k1_launches, "k2_launches": k2_launches, "loss_first": losses[0], "loss_last": losses[-1],
+        "a_first": SPHERE_FIT_START, "a_last": rows[-1]["a"], "a_target": SPHERE_FIT_HOLE[1],
+        "s_per_step": mean("s"), "k1_ms_per_step": mean("k1_ms"), "k2_ms_per_step": mean("k2_ms"),
+        "step_breakdown_s": split, "device_busy_share": busy,
+    }
+    print(json.dumps(fit), flush=True)
+    grads = [g for r in rows for g in r["grads"].values()]
+    if not all(math.isfinite(g) for g in grads):
+        fail(f"a sphere fit gradient is not finite: {rows}")
+    if not all(any(r["grads"][k] != 0.0 for r in rows) for k in ("a", "radius", "dth")):
+        fail(f"a sphere fit gradient is zero on every step: {rows}")
+    if k1_launches == 0 or k2_launches == 0:
+        fail(f"the sphere fit launched K1 {k1_launches} and K2 {k2_launches} times")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"the sphere fit's loss did not fall: {losses}")
+    return sweeps, fit
+
+
+def compare_resume(bl):
+    """Phase 30's check of one kernel: K1 on the kerr.toml chunk (K3 on the
+    kerr-bl chunk), float32, in two legs against one shot, all three
+    through fast_path._run_kernel with the scene's spec and integration
+    settings (the construction of the JAX package's resume tests), and
+    each leg against its plain version called with the same arguments."""
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+    from gr_raytracer_tpu_torch.rendering import fast_path
+    from gr_raytracer_tpu_torch.rendering import integrator as integ
+
+    toml = KERR_BL_TOML if bl else KERR_TOML
+    scene, spec, y0, _, solver, _ = chunk_inputs(torch.float32, toml, FRAME, BL_CAMERA_KW if bl else None)
+    cfg = scene.integration
+    if cfg.max_steps >= fast_path.DEEP_BUDGET_COMPENSATION:
+        fail(f"the resume chunk's budget {cfg.max_steps} is compensated: legs would not be bit-identical")
+    kw = dict(max_radius=cfg.max_radius, discs=spec.discs, spheres=spec.spheres, vols=spec.vols,
+              opaque_stop=spec.opaque, max_events=cfg.max_events)
+    if bl:
+        args = (spec.radius, spec.a, spec.horizon_epsilon, y0, solver.e.contiguous(), solver.l_z.contiguous(),
+                solver.q.contiguous())
+        kw.update(h0=0.01, max_steps=2 * cfg.max_steps)
+        plain = gm.march_bl_plain
+    else:
+        args = (spec.radius, spec.a, spec.horizon_epsilon, y0)
+        kw.update(h0=1.0, max_steps=cfg.max_steps, r_safe=spec.r_safe)
+        plain = gm.march_plain
+    kernel = lambda **legs: fast_path._run_kernel(spec, cfg, solver, y0, **legs)
+    same = lambda g, r: bool(((g == r) | (g.isnan() & r.isnan()) if g.is_floating_point() else (g == r)).all())
+    kernel()
+    one_ms, one = time_cuda(kernel, reps=3)
+    attempts = int(one[2].max()) // 2
+
+    def two_legs():
+        first = kernel(attempts=attempts, finalize=False)
+        return first, kernel(resume=first)
+
+    legs_ms, (leg1, leg2) = time_cuda(two_legs, reps=3)
+    res = {
+        "kernel": "K3" if bl else "K1", "chunk": os.path.basename(toml), "dtype": "float32",
+        "budget": kw["max_steps"], "slowest_lane_steps": int(one[2].max()), "attempts_leg1": attempts,
+        "running_after_leg1": int((leg1[1] == integ.RUNNING).sum()), "one_shot_ms": one_ms, "two_legs_ms": legs_ms,
+        "legs_equal_one_shot": all(same(g, r) for g, r in zip(leg2, one)),
+    }
+    # Each leg against its plain version. K1's plain march runs the legs
+    # whole; K3's two legs of BL_RESUME_COMPARE_ATTEMPTS iterations each.
+    if bl:
+        a1 = a2 = BL_RESUME_COMPARE_ATTEMPTS
+        k1 = kernel(attempts=a1, finalize=False)
+        k2 = kernel(resume=k1, attempts=a2, finalize=False)
+    else:
+        a1, a2 = attempts, None
+        k1, k2 = leg1, leg2
+    t0 = time.perf_counter()
+    p1 = plain(*args, **kw, attempts=a1, finalize=False)
+    p2 = plain(*args, **kw, resume=p1, attempts=a2, finalize=a2 is None)
+    torch.cuda.synchronize()
+    res["plain_legs"] = {
+        "attempts": [a1, a2 if a2 is not None else kw["max_steps"]], "plain_ms": (time.perf_counter() - t0) * 1e3,
+        "running_after_leg2": int((p2[1] == integ.RUNNING).sum()),
+        "leg1_equal": all(same(g, r) for g, r in zip(k1, p1)), "leg2_equal": all(same(g, r) for g, r in zip(k2, p2)),
+    }
+    res["ok"] = (res["legs_equal_one_shot"] and res["running_after_leg1"] > 0 and res["plain_legs"]["leg1_equal"]
+                 and res["plain_legs"]["leg2_equal"])
+    return res
+
+
+def resume_phase():
+    """Phase 30: `resume` in K1 and K3; returns {kernel: result}."""
+    phase("30. resume: K1 and K3 in two legs against one shot")
+    out = {}
+    for bl in (False, True):
+        r = compare_resume(bl)
+        out[r["kernel"]] = r
+        print(json.dumps(r), flush=True)
+        if not r["ok"]:
+            fail(f"{r['kernel']} in two resumed legs disagrees with one shot or with its plain version: {r}")
+    return out
+
+
 def main():
     import math
 
@@ -1824,11 +2265,12 @@ def main():
             fail(f"K1 with checkpoints disagrees with its plain version: {r}")
 
     phase("6. K2 against its plain version")
-    flops_vjp = count_vjp_flops()
-    print(f"flops per ray of a reverse step's VJP (plain step map + VJP, counted): {flops_vjp}")
+    sweep_flops = count_sweep_flops()
+    print(f"flops per ray of the sweep (re-forward step, reverse step, payload at the stored step; counted): "
+          f"{json.dumps(sweep_flops)}")
     sweeps = {}
     for dtype in (torch.float64, torch.float32):
-        r = compare_adjoint(dtype, marches[dtype], fit_spec, flops_per_step, flops_vjp)
+        r = compare_adjoint(dtype, marches[dtype], fit_spec, sweep_flops)
         sweeps[dtype] = r
         print(json.dumps(r), flush=True)
         if not r["ok"]:
@@ -1895,11 +2337,12 @@ def main():
     print(json.dumps(sch), flush=True)
 
     phase("11. K4 against its plain version")
-    bl_flops_vjp = count_bl_vjp_flops()
-    print(f"flops per ray of a BL reverse step's VJP (plain step map + VJP, counted): {bl_flops_vjp}")
+    bl_sweep_flops = count_bl_sweep_flops()
+    print(f"flops per ray of the BL sweep (re-forward step, reverse step, payload at the stored step; counted): "
+          f"{json.dumps(bl_sweep_flops)}")
     bl_sweeps = {}
     for dtype in (torch.float64, torch.float32):
-        r = compare_adjoint(dtype, bl_marches[dtype], bl_spec, bl_flops_step, bl_flops_vjp, bl_consts[dtype])
+        r = compare_adjoint(dtype, bl_marches[dtype], bl_spec, bl_sweep_flops, bl_consts[dtype])
         bl_sweeps[dtype] = r
         print(json.dumps(r), flush=True)
         if not r["ok"]:
@@ -1992,8 +2435,10 @@ def main():
     sphere_marches = sphere_march_phases()
     sphere_renders = sphere_render_phases()
     f64_gradient_phase(vol_fit)
+    sphere_sweeps, sphere_fit = sphere_gradient_phases()
+    resumed = resume_phase()
 
-    phase("27. kernels")
+    phase("31. kernels")
     prod = variants[(torch.float32, False)]
     sweep = sweeps[torch.float32]
     bl_prod = bl_variants[(torch.float32, False)]
@@ -2012,15 +2457,17 @@ def main():
         "source": "gr_raytracer_tpu_torch/csrc/kerr_rk4_march.cu",
         "replaces": "gr_raytracer_tpu/ops/geodesic_pallas.py:790",
         "launches": (launches + fit["k1_launches"] + vol_main["k1_launches"] + vol_fit["launches"]["k1"]
-                     + sphere_renders["kerr-sphere.toml"]["launches"]),
+                     + sphere_renders["kerr-sphere.toml"]["launches"] + sphere_fit["k1_launches"]),
         "launches_by_path": {"render": launches, "fit": fit["k1_launches"],
                              "render_volumetric": vol_main["k1_launches"],
                              "fit_volumetric": vol_fit["launches"]["k1"],
-                             "render_kerr_sphere": sphere_renders["kerr-sphere.toml"]["launches"]},
+                             "render_kerr_sphere": sphere_renders["kerr-sphere.toml"]["launches"],
+                             "fit_kerr_sphere": sphere_fit["k1_launches"]},
         "max_abs_err": max(prod["max_abs_err"], variants[(torch.float32, True)]["max_abs_err"],
                            *(r["max_abs_err"] for (k, _, dt), r in sphere_marches.items()
                              if k == "K1" and dt == torch.float32)),
         "sphere_events": sphere_rows("K1"),
+        "resume": resumed["K1"],
         "ms": prod["kernel_ms"],
         "plain_ms": prod["plain_ms"],
         "bound_ms": prod["bound_ms"],
@@ -2031,8 +2478,12 @@ def main():
         "route": "cuda",
         "source": "gr_raytracer_tpu_torch/csrc/kerr_ks_adjoint.cu",
         "replaces": "gr_raytracer_tpu/ops/geodesic_adjoint.py:370",
-        "launches": fit["k2_launches"],
-        "max_abs_err": sweep["max_abs_err"],
+        "launches": fit["k2_launches"] + sphere_fit["k2_launches"],
+        "launches_by_path": {"fit": fit["k2_launches"], "fit_kerr_sphere": sphere_fit["k2_launches"]},
+        "max_abs_err": max(sweep["max_abs_err"], sphere_sweeps[torch.float32]["max_abs_err"]),
+        "sphere_payload": [{"chunk": r["chunk"], "dtype": r["dtype"], **{k: r[k] for k in (
+            "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "lanes_within_tol", "by_slot0_kind")}}
+            for r in sphere_sweeps.values()],
         "ms": sweep["kernel_ms"],
         "plain_ms": sweep["plain_ms"],
         "bound_ms": sweep["bound_ms"],
@@ -2056,6 +2507,7 @@ def main():
                            *(r["max_abs_err"] for (k, _, dt), r in sphere_marches.items()
                              if k == "K3" and dt == torch.float32)),
         "sphere_events": sphere_rows("K3"),
+        "resume": resumed["K3"],
         "ms": bl_prod["kernel_ms"],
         "plain_ms": bl_prod["plain_ms"],
         "bound_ms": bl_prod["bound_ms"],

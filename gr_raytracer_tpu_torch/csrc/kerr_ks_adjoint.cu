@@ -30,6 +30,17 @@
 // What bounds it on the card: operations (each reverse step costs ten dual
 // step evaluations against a few hundred bytes of scratch traffic).
 //
+// The payload is evaluated only at the step that stored slot 0 (the lane's
+// last), where its cotangent enters: the disc payload, or the sphere
+// payload when the slot-0 kind is a sphere's (or the scene has no disc).
+// The sphere payload replays the march's crossing (sphere_events.cuh) with
+// the JAX VJP's guards: sqrt(max(disc, 1e-30)), |a| > 1e-30, the + root
+// where it lies in [0, 1] (a choice on values), cos θ clipped by a select
+// and θ = π/2 − atan(cos θ / sin θ) with sin θ = sqrt(max(1 − cos², 1e-30)),
+// whose derivative stays finite at cos θ = 0 (atan2's does not). The
+// sphere table's rows come from the host in double as the march's do, so
+// the replayed crossing sees the forward's constants.
+//
 // Conventions of the JAX VJP kept here: masks are selects (the untaken
 // branch gets no derivative); the payload guards (|dz| ≥ 1e-12, the
 // sqrt(max(·, 1e-30)) guards, disc bounds selected by the slot-0 kind);
@@ -41,6 +52,7 @@
 // atomics, so the result is deterministic; the wrapper sums them.
 
 #include "kerr_ks_common.cuh"
+#include "sphere_events.cuh"
 
 namespace {
 
@@ -57,6 +69,7 @@ struct AdjParams {
   T disc_outer[kMaxDiscs];
   int disc_kind[kMaxDiscs];
   int n_discs;
+  SphereTable<T> spheres;
   int n_seg;
   int k_ckpt;
 };
@@ -72,27 +85,14 @@ __device__ __forceinline__ bool all_finite(const T* y) {
   return ok;
 }
 
-// The step map G (ops/geodesic_adjoint.py _step_with_payload): y_new and,
-// when `with_payload`, the slot-0 disc payload [point3 | p_interp4 | uv2 |
-// seg3] (_disc_payload).
+// The slot-0 disc payload of the step y → y_new (_disc_payload): the
+// crossing fraction, the point (px, py, 0) and the disc UV.
 template <typename S, typename T>
-__device__ __forceinline__ void step_map(const AdjParams<T>& P, S radius, S a, const S* y, int kind0,
-                                         bool with_payload, S* y_new, S* payload) {
-  const S m = S(0.5) * radius;
-  const S r_plus = m + sqrt_(nmax(m * m - a * a, S(1e-30)));
-  const S r_here = ks_radius(a, y[1], y[2], y[3]);
-  S delta[8];
-  rk4_delta<true>(P.rule, radius, a, r_plus, r_here, y, delta);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) y_new[i] = y[i] + delta[i];
-  if (!with_payload) return;
-
-  S p_prev[4], p_new[4];
-  momentum_contra(radius, a, y, p_prev);
-  momentum_contra(radius, a, y_new, p_new);
+__device__ __forceinline__ void disc_payload(const AdjParams<T>& P, const S* y, const S* y_new,
+                                             int kind0, S& frac, S* point, S& u, S& v) {
   const S den_raw = y[3] - y_new[3];
   const bool ok = abs_(value(den_raw)) >= T(1e-12);
-  const S frac = (ok ? y[3] : S(0)) / (ok ? den_raw : S(1));
+  frac = (ok ? y[3] : S(0)) / (ok ? den_raw : S(1));
   const S px = y[1] + frac * (y_new[1] - y[1]);
   const S py = y[2] + frac * (y_new[2] - y[2]);
   const S rr = sqrt_(nmax(px * px + py * py, S(1e-30)));
@@ -105,13 +105,84 @@ __device__ __forceinline__ void step_map(const AdjParams<T>& P, S radius, S a, c
     }
   }
   const S r_norm = (rr - S(inner)) / S(outer - inner);
-  payload[0] = px;
-  payload[1] = py;
-  payload[2] = S(0);
+  point[0] = px;
+  point[1] = py;
+  point[2] = S(0);
+  u = S(0.5) + S(0.5) * r_norm * cos_(phi);
+  v = S(0.5) + S(0.5) * r_norm * sin_(phi);
+}
+
+// The slot-0 payload of sphere i for the step y → y_new (_sphere_payload):
+// the crossing fraction t, the world point and the local spherical UV.
+template <typename S, typename T>
+__device__ __forceinline__ void sphere_payload(const SphereTable<T>& SP, int i, const S* y,
+                                               const S* y_new, S& t, S* point, S& u, S& v) {
+  const T pi = T(3.141592653589793), two_pi = T(2.0 * 3.141592653589793);
+  const S c[3] = {S(SP.cx[i]), S(SP.cy[i]), S(SP.cz[i])};
+  S d[3], s_loc[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    d[k] = y_new[1 + k] - y[1 + k];
+    s_loc[k] = y[1 + k] - c[k];
+  }
+  const S a_q = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+  const S b_q = S(2) * (s_loc[0] * d[0] + s_loc[1] * d[1] + s_loc[2] * d[2]);
+  const S c_q = (s_loc[0] * s_loc[0] + s_loc[1] * s_loc[1] + s_loc[2] * s_loc[2]) - S(SP.radius2[i]);
+  const S disc = b_q * b_q - S(4) * a_q * c_q;
+  const S sq = sqrt_(nmax(disc, S(1e-30)));
+  const S safe_a = abs_(value(a_q)) > T(1e-30) ? a_q : S(1);
+  const S t1 = (-b_q + sq) / (S(2) * safe_a);
+  const S t2 = (-b_q - sq) / (S(2) * safe_a);
+  t = (value(t1) >= T(0) && value(t1) <= T(1)) ? t1 : t2;
+  S local[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) local[k] = s_loc[k] + t * d[k];
+  const S r_loc = sqrt_(nmax(local[0] * local[0] + local[1] * local[1] + local[2] * local[2], S(1e-30)));
+  const S cos_th = clip(local[2] / r_loc, S(-1), S(1));
+  const S sin_th = sqrt_(nmax(S(1) - cos_th * cos_th, S(1e-30)));
+  const S theta = S(T(0.5) * pi) - atan_(cos_th / sin_th);
+  const S phi = atan2_(local[1], local[0]);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) point[k] = local[k] + c[k];
+  u = S(1) - (S(pi) + phi) / S(two_pi);
+  v = theta / S(pi);
+}
+
+// The step map G (ops/geodesic_adjoint.py _step_with_payload): y_new and,
+// when `with_payload`, the slot-0 payload [point3 | p_interp4 | uv2 |
+// seg3] of the disc or the sphere that the slot-0 kind names.
+template <typename S, typename T>
+__device__ __forceinline__ void step_map(const AdjParams<T>& P, S radius, S a, const S* y, int kind0,
+                                         bool with_payload, S* y_new, S* payload) {
+  const S m = S(0.5) * radius;
+  const S r_plus = m + sqrt_(nmax(m * m - a * a, S(1e-30)));
+  const S r_here = ks_radius(a, y[1], y[2], y[3]);
+  S delta[8];
+  rk4_delta<true>(P.rule, radius, a, r_plus, r_here, y, delta);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) y_new[i] = y[i] + delta[i];
+  if (!with_payload) return;
+
+  // The sphere the slot-0 kind names; a scene of spheres alone takes the
+  // first where it names none, as the JAX payload's select chain does.
+  int sphere = -1;
+  for (int i = 0; i < P.spheres.n; ++i) {
+    if (kind0 == P.spheres.kind[i]) sphere = i;
+  }
+  if (sphere < 0 && P.n_discs == 0) sphere = 0;
+  S frac, u, v;
+  if (sphere >= 0) {
+    sphere_payload(P.spheres, sphere, y, y_new, frac, payload, u, v);
+  } else {
+    disc_payload(P, y, y_new, kind0, frac, payload, u, v);
+  }
+  S p_prev[4], p_new[4];
+  momentum_contra(radius, a, y, p_prev);
+  momentum_contra(radius, a, y_new, p_new);
 #pragma unroll
   for (int i = 0; i < 4; ++i) payload[3 + i] = p_prev[i] + frac * (p_new[i] - p_prev[i]);
-  payload[7] = S(0.5) + S(0.5) * r_norm * cos_(phi);
-  payload[8] = S(0.5) + S(0.5) * r_norm * sin_(phi);
+  payload[7] = u;
+  payload[8] = v;
 #pragma unroll
   for (int i = 0; i < 3; ++i) payload[9 + i] = y_new[1 + i] - y[1 + i];
 }
@@ -221,15 +292,18 @@ adjoint_kernel(const AdjParams<T> P, const T* __restrict__ ckpt, const T* __rest
 }
 
 // params: radius, a, h0, h_min_frac, r_ref, r_safe. discs: n_discs rows of
-// (inner, outer, kind). ints: n_seg, k_ckpt. ckpt [n_seg, 8, n]; ct_y and
-// d_y0 [n, 8]; ct_ev [n, 12]; steps, grad_ok, has_ev, ev_kind0 i32 [n];
-// d_radius, d_a [n]; scratch [k_ckpt, 8, n].
+// (inner, outer, kind); spheres: n_spheres rows of (radius, cx, cy, cz,
+// radius², |c|, kind), the march's; one disc or sphere at least. ints:
+// n_seg, k_ckpt. ckpt [n_seg, 8, n]; ct_y and d_y0 [n, 8]; ct_ev [n, 12];
+// steps, grad_ok, has_ev, ev_kind0 i32 [n]; d_radius, d_a [n]; scratch
+// [k_ckpt, 8, n].
 template <typename T>
 int launch(const void* ckpt, const void* ct_y, const void* ct_ev, const void* steps,
            const void* grad_ok, const void* has_ev, const void* ev_kind0, int64_t n, void* d_y0,
            void* d_radius, void* d_a, void* scratch, const double* params, const double* discs,
-           int n_discs, const int* ints, void* stream) {
-  if (n_discs < 1 || n_discs > kMaxDiscs || ints[0] < 0 || ints[1] < 1) {
+           int n_discs, const double* spheres, int n_spheres, const int* ints, void* stream) {
+  if (n_discs < 0 || n_discs > kMaxDiscs || n_spheres < 0 || n_spheres > kMaxSpheres ||
+      n_discs + n_spheres < 1 || ints[0] < 0 || ints[1] < 1) {
     return (int)cudaErrorInvalidValue;
   }
   AdjParams<T> P;
@@ -246,6 +320,7 @@ int launch(const void* ckpt, const void* ct_y, const void* ct_ev, const void* st
     P.disc_kind[i] = on ? (int)discs[3 * i + 2] : -1;
   }
   P.n_discs = n_discs;
+  fill_sphere_table(P.spheres, spheres, n_spheres);
   P.n_seg = ints[0];
   P.k_ckpt = ints[1];
   if (n > 0) {
@@ -265,19 +340,19 @@ extern "C" {
 int kerr_ks_adjoint_f32(const void* ckpt, const void* ct_y, const void* ct_ev, const void* steps,
                         const void* grad_ok, const void* has_ev, const void* ev_kind0, int64_t n,
                         void* d_y0, void* d_radius, void* d_a, void* scratch,
-                        const double* params, const double* discs, int n_discs, const int* ints,
-                        void* stream) {
+                        const double* params, const double* discs, int n_discs,
+                        const double* spheres, int n_spheres, const int* ints, void* stream) {
   return launch<float>(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, n, d_y0, d_radius,
-                       d_a, scratch, params, discs, n_discs, ints, stream);
+                       d_a, scratch, params, discs, n_discs, spheres, n_spheres, ints, stream);
 }
 
 int kerr_ks_adjoint_f64(const void* ckpt, const void* ct_y, const void* ct_ev, const void* steps,
                         const void* grad_ok, const void* has_ev, const void* ev_kind0, int64_t n,
                         void* d_y0, void* d_radius, void* d_a, void* scratch,
-                        const double* params, const double* discs, int n_discs, const int* ints,
-                        void* stream) {
+                        const double* params, const double* discs, int n_discs,
+                        const double* spheres, int n_spheres, const int* ints, void* stream) {
   return launch<double>(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, n, d_y0, d_radius,
-                        d_a, scratch, params, discs, n_discs, ints, stream);
+                        d_a, scratch, params, discs, n_discs, spheres, n_spheres, ints, stream);
 }
 
 }  // extern "C"

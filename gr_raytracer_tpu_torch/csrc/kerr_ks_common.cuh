@@ -1,5 +1,7 @@
 // Device code shared by the Kerr-Schild march (kerr_rk4_march.cu, K1) and
-// its reverse sweep (kerr_ks_adjoint.cu, K2).
+// its reverse sweep (kerr_ks_adjoint.cu, K2); the dual numbers and the
+// start of a march (fresh or resumed) serve the Boyer-Lindquist kernels K3
+// and K4 too.
 //
 // Everything here is templated on the scalar type S: float or double for
 // the march, Dual<float> or Dual<double> (a value and one forward-mode
@@ -95,6 +97,8 @@ __device__ __forceinline__ float sin_(float x) { return sinf(x); }
 __device__ __forceinline__ double sin_(double x) { return sin(x); }
 __device__ __forceinline__ float fabs_(float x) { return fabsf(x); }
 __device__ __forceinline__ double fabs_(double x) { return fabs(x); }
+__device__ __forceinline__ float atan_(float x) { return atanf(x); }
+__device__ __forceinline__ double atan_(double x) { return atan(x); }
 
 template <typename T>
 __device__ __forceinline__ Dual<T> sqrt_(Dual<T> x) {
@@ -113,6 +117,10 @@ __device__ __forceinline__ Dual<T> atan2_(Dual<T> y, Dual<T> x) {
   return Dual<T>(atan2_(y.v, x.v), (x.v * y.d - y.v * x.d) / (x.v * x.v + y.v * y.v));
 }
 template <typename T>
+__device__ __forceinline__ Dual<T> atan_(Dual<T> x) {
+  return Dual<T>(atan_(x.v), x.d / (T(1) + x.v * x.v));
+}
+template <typename T>
 __device__ __forceinline__ Dual<T> cos_(Dual<T> x) {
   return Dual<T>(cos_(x.v), -sin_(x.v) * x.d);
 }
@@ -123,7 +131,8 @@ __device__ __forceinline__ Dual<T> sin_(Dual<T> x) {
 
 // NaN-propagating max / min / clip, the semantics of jnp.maximum & co. For
 // duals a tie splits the tangent half and half, as jnp.maximum's VJP does
-// (ties are exact equalities and never met on a real lane).
+// (ties are exact equalities and never met on a real lane). `clip` is a
+// select on the value: a clipped dual takes the bound's zero tangent.
 template <typename T>
 __device__ __forceinline__ T nmax(T x, T y) {
   return (x != x) ? x : ((y != y) ? y : (x > y ? x : y));
@@ -151,6 +160,62 @@ __device__ __forceinline__ S clip(S x, S lo, S hi) {
 
 template <typename T>
 __device__ __forceinline__ bool is_finite(T x) { return isfinite(x); }
+
+// ---------------------------------------------------------------------------
+// The per-lane start of a march (K1 and K3): fresh, or a previous call's
+// results (resume). A resumed lane keeps its stop code, step count, events
+// and overflow flag; a lane that is not RUNNING stays frozen.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct ResumeIn {
+  const int32_t* stop;  // null: a fresh march
+  const int32_t* steps;
+  const int32_t* ev_kind;  // [n, max_events]
+  const T* ev_data;        // [n, max_events, 12]
+  const int32_t* ev_count;
+  const uint8_t* ev_ovf;
+};
+
+// rows: null, or the six pointers (stop, steps, ev_kind, ev_data, ev_count,
+// ev_ovf) of a previous call's results on the card.
+template <typename T>
+__host__ ResumeIn<T> resume_in(const void* const* rows) {
+  ResumeIn<T> R;
+  R.stop = rows ? (const int32_t*)rows[0] : nullptr;
+  R.steps = rows ? (const int32_t*)rows[1] : nullptr;
+  R.ev_kind = rows ? (const int32_t*)rows[2] : nullptr;
+  R.ev_data = rows ? (const T*)rows[3] : nullptr;
+  R.ev_count = rows ? (const int32_t*)rows[4] : nullptr;
+  R.ev_ovf = rows ? (const uint8_t*)rows[5] : nullptr;
+  return R;
+}
+
+// Fill the lane's output event slots and its counters from R. Each input
+// of the lane is read before the same lane's output is written, so the
+// outputs may alias the inputs.
+template <typename T>
+__device__ __forceinline__ void start_lane(const ResumeIn<T>& R, int64_t lane, int max_events,
+                                           int32_t* my_kind, T* my_data, int& stop, int& steps,
+                                           int& ev_count, bool& ev_ovf) {
+  if (R.stop == nullptr) {
+    for (int k = 0; k < max_events; ++k) my_kind[k] = -1;
+    for (int k = 0; k < max_events * kEventWidth; ++k) my_data[k] = T(0);
+    stop = kRunning;
+    steps = 0;
+    ev_count = 0;
+    ev_ovf = false;
+    return;
+  }
+  const int32_t* kind_in = R.ev_kind + lane * max_events;
+  const T* data_in = R.ev_data + lane * max_events * kEventWidth;
+  for (int k = 0; k < max_events; ++k) my_kind[k] = kind_in[k];
+  for (int k = 0; k < max_events * kEventWidth; ++k) my_data[k] = data_in[k];
+  stop = R.stop[lane];
+  steps = R.steps[lane];
+  ev_count = R.ev_count[lane];
+  ev_ovf = R.ev_ovf[lane] != 0;
+}
 
 // ---------------------------------------------------------------------------
 // Kerr-Schild geometry

@@ -30,8 +30,10 @@
 // Options ported: disc events, sphere events (sphere_events.cuh), the
 // bounding-volume events of z-axis volumetric discs (vol_events.cuh), in
 // that order within a step, the opaque stop, the far-field lever, the
-// Kahan-compensated update, `attempts`, `finalize` and the reverse-sweep
-// checkpoints (`ckpt_every`). Resume is rejected by the Python wrapper.
+// Kahan-compensated update, `attempts`, `finalize`, the reverse-sweep
+// checkpoints (`ckpt_every`) and `resume`: a lane starts from a previous
+// call's stop code, step count and events (kerr_ks_common.cuh start_lane),
+// so legs of `attempts` iterations continue one march bit for bit.
 //
 // The device functions (right-hand side, step rule, p^μ) live in
 // kerr_ks_common.cuh, shared with the reverse sweep kerr_ks_adjoint.cu, so
@@ -72,14 +74,15 @@ march_kernel(const Params<T> P, const T* __restrict__ y0, int64_t n, T* __restri
              int32_t* __restrict__ stop_out, int32_t* __restrict__ steps_out,
              int32_t* __restrict__ ev_kind, T* __restrict__ ev_data,
              int32_t* __restrict__ ev_count_out, uint8_t* __restrict__ ev_ovf_out,
-             T* __restrict__ ckpt) {
+             T* __restrict__ ckpt, const ResumeIn<T> R) {
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
 
   int32_t* my_kind = ev_kind + lane * P.max_events;
   T* my_data = ev_data + lane * P.max_events * kEventWidth;
-  for (int k = 0; k < P.max_events; ++k) my_kind[k] = -1;
-  for (int k = 0; k < P.max_events * kEventWidth; ++k) my_data[k] = T(0);
+  int stop, steps, ev_count;
+  bool ev_ovf;
+  start_lane(R, lane, P.max_events, my_kind, my_data, stop, steps, ev_count, ev_ovf);
 
   T y[8], comp[8];
 #pragma unroll
@@ -91,13 +94,12 @@ march_kernel(const Params<T> P, const T* __restrict__ y0, int64_t n, T* __restri
   const T r_plus = m + sqrt_(nmax(m * m - P.a * P.a, T(0)));
   const T max_radius_sq = P.max_radius * P.max_radius;
   T r_here = ks_radius(P.a, y[1], y[2], y[3]);
-  int stop = kRunning, steps = 0, ev_count = 0;
-  bool ev_ovf = false;
 
   for (int it = 0; it < P.attempts && stop == kRunning; ++it) {
     if (P.ckpt_every > 0 && it % P.ckpt_every == 0) {
       // Reverse-sweep checkpoint: the pre-step state, [S, 8, N] with lanes
-      // fastest. While the lane runs, `it` is its step count.
+      // fastest, rows by this call's iteration (on a resumed leg a lane's
+      // step count runs ahead of it).
       T* row = ckpt + (int64_t)(it / P.ckpt_every) * 8 * n + lane;
 #pragma unroll
       for (int i = 0; i < 8; ++i) row[(int64_t)i * n] = y[i];
@@ -229,12 +231,13 @@ march_kernel(const Params<T> P, const T* __restrict__ y0, int64_t n, T* __restri
 // finalize, compensated, ckpt_every, max_events (the event slots of a lane:
 // ev_kind is [n, max_events], ev_data [n, max_events, 12]). ckpt:
 // [S, 8, n] with S = ceil(attempts / ckpt_every), or null when ckpt_every
-// is 0.
+// is 0. resume: null, or the six per-lane inputs (stop, steps, ev_kind,
+// ev_data, ev_count, ev_ovf) of a resumed march, y0 being its state.
 template <typename T>
 int launch(const void* y0, int64_t n, void* y_out, void* stop, void* steps, void* ev_kind,
-           void* ev_data, void* ev_count, void* ev_ovf, void* ckpt, const double* params,
-           const double* discs, int n_discs, const double* spheres, int n_spheres,
-           const double* vols, int n_vols, const int* ints, void* stream) {
+           void* ev_data, void* ev_count, void* ev_ovf, void* ckpt, const void* const* resume,
+           const double* params, const double* discs, int n_discs, const double* spheres,
+           int n_spheres, const double* vols, int n_vols, const int* ints, void* stream) {
   if (n_discs < 0 || n_discs > kMaxDiscs) return (int)cudaErrorInvalidValue;
   if (n_spheres < 0 || n_spheres > kMaxSpheres) return (int)cudaErrorInvalidValue;
   if (n_vols < 0 || n_vols > kMaxVols) return (int)cudaErrorInvalidValue;
@@ -269,7 +272,7 @@ int launch(const void* y0, int64_t n, void* y_out, void* stop, void* steps, void
     const int64_t blocks = (n + kThreads - 1) / kThreads;
     march_kernel<T><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
         P, (const T*)y0, n, (T*)y_out, (int32_t*)stop, (int32_t*)steps, (int32_t*)ev_kind,
-        (T*)ev_data, (int32_t*)ev_count, (uint8_t*)ev_ovf, (T*)ckpt);
+        (T*)ev_data, (int32_t*)ev_count, (uint8_t*)ev_ovf, (T*)ckpt, resume_in<T>(resume));
   }
   return (int)cudaGetLastError();
 }
@@ -280,20 +283,20 @@ extern "C" {
 
 int kerr_rk4_march_f32(const void* y0, int64_t n, void* y_out, void* stop, void* steps,
                        void* ev_kind, void* ev_data, void* ev_count, void* ev_ovf, void* ckpt,
-                       const double* params, const double* discs, int n_discs,
+                       const void* const* resume, const double* params, const double* discs, int n_discs,
                        const double* spheres, int n_spheres, const double* vols, int n_vols,
                        const int* ints, void* stream) {
   return launch<float>(y0, n, y_out, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, ckpt,
-                       params, discs, n_discs, spheres, n_spheres, vols, n_vols, ints, stream);
+                       resume, params, discs, n_discs, spheres, n_spheres, vols, n_vols, ints, stream);
 }
 
 int kerr_rk4_march_f64(const void* y0, int64_t n, void* y_out, void* stop, void* steps,
                        void* ev_kind, void* ev_data, void* ev_count, void* ev_ovf, void* ckpt,
-                       const double* params, const double* discs, int n_discs,
+                       const void* const* resume, const double* params, const double* discs, int n_discs,
                        const double* spheres, int n_spheres, const double* vols, int n_vols,
                        const int* ints, void* stream) {
   return launch<double>(y0, n, y_out, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, ckpt,
-                        params, discs, n_discs, spheres, n_spheres, vols, n_vols, ints, stream);
+                        resume, params, discs, n_discs, spheres, n_spheres, vols, n_vols, ints, stream);
 }
 
 }  // extern "C"

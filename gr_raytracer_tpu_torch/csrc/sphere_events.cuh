@@ -16,8 +16,10 @@
 // _sphere_candidates_ks and _sphere_candidates_bl; the order of every
 // operation is theirs. What bounds it: nothing of its own. The store runs
 // on the few steps whose chord meets a sphere; the candidate test is ~10
-// float operations a sphere and step. The reverse sweeps K2 and K4 do not
-// include this header.
+// float operations a sphere and step. The Kerr-Schild reverse sweep K2
+// (kerr_ks_adjoint.cu) takes the same sphere table, filled from the same
+// rows, and replays the store's crossing in its sphere payload; the BL
+// sweep K4 has no sphere payload.
 
 #pragma once
 

@@ -8,9 +8,9 @@
             per lane, segments in reverse order; each re-forwards its steps
             from the checkpoint, replaying the march bit for bit, then walks
             them backwards applying the VJP of the whole step (RK4, the step
-            rule, the far-field lever of K1 and the slot-0 disc payload) to
-            carry the adjoint λ and the per-lane partials ∂L/∂radius,
-            ∂L/∂a, and on the BL march ∂L/∂E, ∂L/∂L_z, ∂L/∂Q.
+            rule, the far-field lever of K1 and the slot-0 disc or sphere
+            payload) to carry the adjoint λ and the per-lane partials
+            ∂L/∂radius, ∂L/∂a, and on the BL march ∂L/∂E, ∂L/∂L_z, ∂L/∂Q.
 
 For tensors on the card the backward launches the hand-written CUDA kernel
 (csrc/kerr_ks_adjoint.cu, csrc/kerr_bl_adjoint.cu); for tensors on the CPU
@@ -19,9 +19,11 @@ it runs the same sweep in plain torch (`ks_march_bwd_plain`,
 
 The VJP differentiates the discrete march (same steps, same masks), not a
 continuous adjoint. Stop codes, the crossing step and the cost sort are
-locally constant. Scope: scenes with thin discs whose textures are all
-opaque, so that the only shaded event is slot 0, recorded at the lane's
-last step. The sphere payload is not yet ported.
+locally constant. Scope: scenes whose textures are all opaque, so that the
+only shaded event is slot 0, recorded at the lane's last step; with thin
+discs and spheres on the Kerr-Schild march (the slot-0 kind picks the
+payload per lane), with thin discs on the Boyer-Lindquist one (the JAX
+package's BL sweep has no sphere payload either).
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ class SweepConfig(NamedTuple):
     h_min_frac: float
     r_ref_scale: float
     k_ckpt: int
+    spheres: tuple = ()  # SphereSpec; the Kerr-Schild sweep only
 
 
 # ---------------------------------------------------------------------------
@@ -132,17 +135,75 @@ def _disc_uv(discs, ev_kind0, px, py):
     return 0.5 + 0.5 * r_norm * torch.cos(phi), 0.5 + 0.5 * r_norm * torch.sin(phi)
 
 
+def _sphere_payload(spheres, ev_kind0, y, y_new):
+    """The slot-0 sphere-crossing payload of the step y → y_new, as the
+    march stores it: the crossing fraction t, the world point and the local
+    spherical UV of the sphere that the slot-0 kind names (the first
+    sphere's where it names none). Every sqrt and division is guarded
+    (sqrt(max(·, 1e-30)), |a| > 1e-30), so that a lane whose slot 0 is not
+    this sphere contributes exact zeros under its zero cotangent. The +
+    root is taken where it lies in [0, 1], a locally constant choice.
+
+    θ = π/2 − atan(cos θ / sin θ), with sin θ = sqrt(max(1 − cos², 1e-30)),
+    is atan2(sin θ, cos θ) in value, but its derivative stays finite at
+    cos θ = 0, where a frozen lane's benign state sits: through atan2's
+    y/x the derivative is infinite there, and 0 · ∞ turns λ into NaN."""
+    s3 = y[1:4]
+    d = y_new[1:4] - y[1:4]
+    tiny = y.new_tensor(1e-30)
+    a_q = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    out = None
+    for sp in spheres:
+        s_loc = torch.stack([s3[0] - sp.cx, s3[1] - sp.cy, s3[2] - sp.cz])
+        b_q = 2.0 * (s_loc[0] * d[0] + s_loc[1] * d[1] + s_loc[2] * d[2])
+        c_q = (s_loc[0] * s_loc[0] + s_loc[1] * s_loc[1] + s_loc[2] * s_loc[2]) - sp.radius * sp.radius
+        disc = b_q * b_q - 4.0 * a_q * c_q
+        sq = torch.sqrt(torch.maximum(disc, tiny))
+        safe_a = torch.where(torch.abs(a_q) > 1e-30, a_q, 1.0)
+        t1 = (-b_q + sq) / (2.0 * safe_a)
+        t2 = (-b_q - sq) / (2.0 * safe_a)
+        t = torch.where((t1 >= 0.0) & (t1 <= 1.0), t1, t2)
+        local = s_loc + t[None] * d
+        r_loc = torch.sqrt(torch.maximum(local[0] * local[0] + local[1] * local[1] + local[2] * local[2], tiny))
+        cos_th = torch.clamp(local[2] / r_loc, -1.0, 1.0)
+        sin_th = torch.sqrt(torch.maximum(1.0 - cos_th * cos_th, tiny))
+        theta = math.pi / 2 - torch.atan(cos_th / sin_th)
+        phi = torch.atan2(local[1], local[0])
+        u = 1.0 - (math.pi + phi) / (2.0 * math.pi)
+        v = theta / math.pi
+        vals = (t, local[0] + sp.cx, local[1] + sp.cy, local[2] + sp.cz, u, v)
+        if out is None:
+            out = vals
+        else:
+            sel = ev_kind0 == sp.kind
+            out = tuple(torch.where(sel, new, old) for new, old in zip(vals, out))
+    return out
+
+
 def _step_with_payload(discs, spheres, h0, h_min_frac, r_ref_scale, r_safe, ev_kind0, radius, a, y, active):
-    """y ↦ (y_new [8, N], payload [12, N]): [point3 | p_interp4 | uv2 | seg3]."""
-    if spheres:
-        raise NotImplementedError("the sphere payload of the reverse sweep is not yet ported")
+    """y ↦ (y_new [8, N], payload [12, N]): [point3 | p_interp4 | uv2 | seg3].
+    With discs and spheres both present, each lane takes the sphere
+    payload where its slot-0 kind is a sphere's and the disc payload
+    elsewhere; a scene of spheres alone takes the sphere payload."""
     y_new = _masked_step(radius, a, h0, h_min_frac, r_ref_scale, r_safe, y, active)
     p_prev = gm._momentum_contra(radius, a, y)
     p_new = gm._momentum_contra(radius, a, y_new)
     seg = y_new[1:4] - y[1:4]
-    frac, px, py, u, v = _disc_payload(discs, ev_kind0, y, y_new)
+    if discs:
+        frac, px, py, u, v = _disc_payload(discs, ev_kind0, y, y_new)
+        pz = torch.zeros_like(px)
+    if spheres:
+        sphere = _sphere_payload(spheres, ev_kind0, y, y_new)
+        if discs:
+            is_sphere = torch.zeros_like(ev_kind0, dtype=torch.bool)
+            for sp in spheres:
+                is_sphere = is_sphere | (ev_kind0 == sp.kind)
+            disc = (frac, px, py, pz, u, v)
+            frac, px, py, pz, u, v = (torch.where(is_sphere, s_, d_) for s_, d_ in zip(sphere, disc))
+        else:
+            frac, px, py, pz, u, v = sphere
     p_interp = p_prev + frac[None] * (p_new - p_prev)
-    payload = torch.cat([px[None], py[None], torch.zeros_like(px)[None], p_interp, u[None], v[None], seg])
+    payload = torch.cat([px[None], py[None], pz[None], p_interp, u[None], v[None], seg])
     return y_new, payload
 
 
@@ -172,6 +233,7 @@ def ks_march_bwd_plain(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, radi
     step_kw = dict(h0=float(sc(cfg.h0)), h_min_frac=float(sc(cfg.h_min_frac)),
                    r_ref_scale=float(sc(cfg.r_ref_scale)), r_safe=float(sc(cfg.r_safe)))
     discs = tuple(gm.DiscSpec(float(sc(d.inner)), float(sc(d.outer)), int(d.kind)) for d in cfg.discs)
+    spheres = tuple(cfg.spheres)
     lam = ct_y.T.clone()  # [8, N]
     # The trust test of a step whose lane is inactive, applied once.
     lam = torch.where(_trusted(lam)[None], lam, 0.0)
@@ -206,7 +268,7 @@ def ks_march_bwd_plain(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, radi
             stored = (has_ev[lanes] != 0) & (steps[lanes] - 1 == start + j)
             ct_p = torch.where(stored[None], ct_ev[lanes].T, 0.0)
             step = functools.partial(
-                _step_with_payload, discs, (), ev_kind0=kind0[sub],
+                _step_with_payload, discs, spheres, ev_kind0=kind0[sub],
                 active=torch.ones(m, dtype=torch.bool, device=device), **step_kw,
             )
             _, vjp = torch.func.vjp(
@@ -341,7 +403,8 @@ def bl_march_bwd_plain(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, radi
 # The two sweeps: K2 (Kerr-Schild) and K4 (Boyer-Lindquist). Entry points
 # take (ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0[, e, l_z, q], n,
 # d_y0[, d_e, d_l_z, d_q], d_radius, d_a, scratch, params, discs, n_discs,
-# ints, stream) and return the CUDA error code of the launch.
+# [spheres, n_spheres,] ints, stream) and return the CUDA error code of the
+# launch; K2 alone takes spheres.
 _KERNELS = {
     False: ("kerr_ks_adjoint", "kerr_ks_adjoint.cu"),
     True: ("kerr_bl_adjoint", "kerr_bl_adjoint.cu"),
@@ -360,9 +423,9 @@ def _entry(bl, dtype):
         fn = getattr(lib, f"{stem}_f32" if dtype == torch.float32 else f"{stem}_f64")
         p = ctypes.c_void_p
         n_lane = 3 if bl else 0  # e, l_z, q in; d_e, d_l_z, d_q out
+        rows = [ctypes.POINTER(ctypes.c_double), ctypes.c_int]
         fn.argtypes = [p] * (7 + n_lane) + [ctypes.c_int64] + [p] * (4 + n_lane) + [
-            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double), ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int), p,
+            ctypes.POINTER(ctypes.c_double), *rows, *([] if bl else rows), ctypes.POINTER(ctypes.c_int), p,
         ]
         fn.restype = ctypes.c_int
         _bound[(bl, dtype)] = fn
@@ -387,17 +450,22 @@ def _bwd_cuda(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, radius, a, cf
     tensors = (ckpt, ct_y, ct_ev) + ints32 + tuple(consts)
     if any(t.device != dev or not t.is_contiguous() for t in tensors):
         raise ValueError("the reverse sweep takes contiguous tensors on one device")
-    if len(cfg.discs) > gm.MAX_DISCS or not cfg.discs:
-        raise NotImplementedError(f"the reverse sweep takes 1 to {gm.MAX_DISCS} discs")
+    if len(cfg.discs) > gm.MAX_DISCS or len(cfg.spheres) > gm.MAX_SPHERES:
+        raise NotImplementedError(f"the reverse sweep takes up to {gm.MAX_DISCS} discs and "
+                                  f"{gm.MAX_SPHERES} spheres")
+    if bl and (cfg.spheres or not cfg.discs):
+        raise NotImplementedError("the BL reverse sweep takes 1 or more discs and no sphere")
+    if not (cfg.discs or cfg.spheres):
+        raise ValueError("the reverse sweep needs at least one disc or sphere")
     d_y0 = torch.empty_like(ct_y)
     partials = [torch.empty(n, dtype=dtype, device=dev) for _ in range(5 if bl else 2)]
     # Pre-step states of the segment being swept, [K, 8, N], lanes fastest.
     scratch = torch.empty((cfg.k_ckpt, 8, n), dtype=dtype, device=dev)
     vals = (radius, a, cfg.h0, cfg.h_min_frac, cfg.r_ref_scale) + (() if bl else (cfg.r_safe,))
     params = (ctypes.c_double * len(vals))(*[float(v) for v in vals])
-    disc_rows = (ctypes.c_double * (3 * gm.MAX_DISCS))(
-        *[float(v) for d in cfg.discs for v in (d.inner, d.outer, d.kind)]
-    )
+    tables = (gm.disc_rows(cfg.discs), len(cfg.discs))
+    if not bl:
+        tables += (gm.sphere_rows(cfg.spheres), len(cfg.spheres))
     ints = (ctypes.c_int * 2)(int(ckpt.shape[0]), int(cfg.k_ckpt))
     fn = _entry(bl, dtype)
     timer = bl_launch_timer if bl else launch_timer
@@ -408,8 +476,8 @@ def _bwd_cuda(ckpt, ct_y, ct_ev, steps, grad_ok, has_ev, ev_kind0, radius, a, cf
             start.record(stream)
         err = fn(
             *(t.data_ptr() for t in (ckpt, ct_y, ct_ev) + ints32 + tuple(consts)), n,
-            d_y0.data_ptr(), *(t.data_ptr() for t in partials), scratch.data_ptr(), params,
-            disc_rows, len(cfg.discs), ints, stream.cuda_stream,
+            d_y0.data_ptr(), *(t.data_ptr() for t in partials), scratch.data_ptr(), params, *tables,
+            ints, stream.cuda_stream,
         )
         if err != 0:
             raise RuntimeError(f"{_KERNELS[bl][0]} kernel launch failed: CUDA error {err}")
@@ -451,7 +519,7 @@ class _KSMarchDiff(torch.autograd.Function):
         host = lambda v: float(torch.as_tensor(v).detach())
         out = gm.kerr_rk4_march(
             host(radius), host(a), host(horizon_eps), y0.contiguous(), h0=cfg.h0,
-            max_steps=cfg.max_steps, max_radius=float(max_radius), discs=cfg.discs,
+            max_steps=cfg.max_steps, max_radius=float(max_radius), discs=cfg.discs, spheres=cfg.spheres,
             h_min_frac=cfg.h_min_frac, r_ref_scale=cfg.r_ref_scale, r_safe=cfg.r_safe,
             opaque_stop=True, ckpt_every=cfg.k_ckpt,
         )
@@ -485,14 +553,16 @@ def make_ks_march_diff(
     ev_data [N, K, 12], stop, steps, ev_kind, ev_count, ev_ovf), with
     radius and a 0-d tensors. Gradients flow from y_f and ev_data[:, 0] to
     radius, a and y0; horizon_eps and max_radius only move discrete stop
-    decisions and get none. The march runs with the opaque stop."""
-    if spheres:
-        raise NotImplementedError("the sphere payload of the reverse sweep is not yet ported")
-    if not discs:
-        raise ValueError("the differentiable march needs at least one disc")
+    decisions and get none. The march runs with the opaque stop; thin discs
+    (DiscSpec) and spheres (SphereSpec) both record their slot-0 payload at
+    a lane's last step, and the sweep takes the one of the recorded kind."""
+    if not all(isinstance(s, gm.SphereSpec) for s in spheres):
+        raise TypeError("spheres must be SphereSpec")
+    if not discs and not spheres:
+        raise ValueError("the differentiable march needs at least one disc or sphere")
     cfg = SweepConfig(
         float(h0), int(max_steps), tuple(discs), float(r_safe), float(h_min_frac),
-        float(r_ref_scale), int(k_ckpt),
+        float(r_ref_scale), int(k_ckpt), tuple(spheres),
     )
 
     def march(radius, a, horizon_eps, max_radius, y0):

@@ -499,14 +499,14 @@ def _plain_step(c, lanes, discs, spheres=(), vols=(), delta_fn=None):
 def _check_args(y0, discs, spheres, vols, resume, ckpt_every, max_events=MAX_EVENTS):
     if int(max_events) < 1:
         raise ValueError(f"max_events must be >= 1, got {max_events}")
-    if resume is not None:
-        raise NotImplementedError("resume is not yet ported")
     if int(ckpt_every) < 0:
         raise ValueError(f"ckpt_every must be >= 0, got {ckpt_every}")
     if y0.dim() != 2 or y0.shape[1] != 8:
         raise ValueError(f"y0 must be [N, 8], got {tuple(y0.shape)}")
     if y0.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"y0 must be float32 or float64, got {y0.dtype}")
+    if resume is not None:
+        _check_resume(y0, resume, int(max_events))
     if len(discs) > MAX_DISCS:
         raise NotImplementedError(f"at most {MAX_DISCS} discs per scene")
     if len(spheres) > MAX_SPHERES:
@@ -519,6 +519,35 @@ def _check_args(y0, discs, spheres, vols, resume, ckpt_every, max_events=MAX_EVE
         raise TypeError("vols must be VolSpec bounding volumes")
 
 
+def _check_resume(y0, resume, max_events):
+    """A resume tuple is a previous march's seven results (y, stop, steps,
+    ev_kind, ev_data, ev_count, ev_overflow) for y0's N lanes, dtype and
+    device, with max_events slots a lane."""
+    n, dt, dev = y0.shape[0], y0.dtype, y0.device
+    if not isinstance(resume, (tuple, list)) or len(resume) != 7:
+        raise ValueError("resume must be the 7 results (y, stop, steps, ev_kind, ev_data, ev_count, "
+                         "ev_overflow) of a previous march")
+    shapes = ((n, 8), (n,), (n,), (n, max_events), (n, max_events, EVENT_WIDTH), (n,), (n,))
+    dtypes = (dt, torch.int32, torch.int32, torch.int32, dt, torch.int32, torch.bool)
+    names = ("y", "stop", "steps", "ev_kind", "ev_data", "ev_count", "ev_overflow")
+    for name, v, shape, dtype in zip(names, resume, shapes, dtypes):
+        if not isinstance(v, torch.Tensor) or tuple(v.shape) != shape or v.dtype != dtype or v.device != dev:
+            got = (tuple(v.shape), v.dtype, v.device) if isinstance(v, torch.Tensor) else type(v)
+            raise ValueError(f"resume's {name} must be {shape} {dtype} on {dev}, got {got}")
+
+
+def _initial_lanes(y0, resume, max_events):
+    """(y [8, N], stop, steps, ev_kind, ev_data, ev_count, ev_ovf) a plain
+    march starts from: fresh buffers, or copies of a previous march's
+    results (resume), whose y replaces y0."""
+    n, dtype, device = y0.shape[0], y0.dtype, y0.device
+    if resume is None:
+        zeros = lambda: torch.zeros(n, dtype=torch.int32, device=device)
+        return (_lane_major_copy(y0), zeros(), zeros(), *_event_buffers(n, dtype, device, max_events))
+    y, stop, steps, ev_kind, ev_data, ev_count, ev_ovf = resume
+    return (_lane_major_copy(y), *(v.clone() for v in (stop, steps, ev_kind, ev_data, ev_count, ev_ovf)))
+
+
 def march_plain(
     radius, a, horizon_epsilon, y0, h0, max_steps, max_radius, discs=(), spheres=(), vols=(),
     h_min_frac=0.01, r_ref_scale=10.0, r_safe=0.0, opaque_stop=False, attempts=None,
@@ -526,22 +555,19 @@ def march_plain(
 ):
     """The march in plain torch on y0's device; same arguments and results
     as `kerr_rk4_march`. Lanes are re-gathered every _COMPACT_EVERY
-    iterations; the checkpoint rows go by the global iteration count."""
+    iterations; the checkpoint rows go by this call's iteration count."""
     _check_args(y0, discs, spheres, vols, resume, ckpt_every, max_events)
     dtype, device = y0.dtype, y0.device
-    n = y0.shape[0]
     attempts = max_steps if attempts is None else int(attempts)
     c = _march_constants(radius, a, horizon_epsilon, h0, max_steps, max_radius, h_min_frac,
                          r_ref_scale, opaque_stop, compensated, dtype, device)
     c["r_safe"] = float(torch.tensor(float(r_safe), dtype=dtype))
     discs = _rounded_discs(discs, dtype)
     spheres = tuple(spheres)
-    y = _lane_major_copy(y0)
-    lanes = _Lanes(
-        y, _ks_radius(c["a"], y[1], y[2], y[3]), torch.zeros(n, dtype=torch.int32, device=device),
-        torch.zeros(n, dtype=torch.int32, device=device),
-        *_event_buffers(n, dtype, device, int(max_events)), torch.zeros_like(y),
-    )
+    y, *state = _initial_lanes(y0, resume, int(max_events))
+    # The carried radius is recomputed from y and the Kahan compensation
+    # starts at zero, on a resumed leg as on a fresh march.
+    lanes = _Lanes(y, _ks_radius(c["a"], y[1], y[2], y[3]), *state, torch.zeros_like(y))
 
     def batch_step(sub):
         delta = _replayed(lambda yy, rr: _ks_rk4_delta(c, yy, rr), sub.y, sub.r)
@@ -589,7 +615,7 @@ def _march_lanes(batch_step, lanes, attempts, finalize, ckpt_every):
     (lanes -> lanes) of each gathered batch. Returns the march's results
     (y [N, 8], stop, steps, ev_kind, ev_data, ev_count, ev_overflow, and
     the checkpoints [S, 8, N] when ckpt_every > 0). The checkpoint rows go
-    by the global iteration count."""
+    by this call's iteration count."""
     k_ckpt = int(ckpt_every)
     if k_ckpt:
         ckpt = lanes.y.new_zeros((-(-attempts // k_ckpt),) + tuple(lanes.y.shape))
@@ -866,22 +892,16 @@ def march_bl_plain(
     results as `kerr_bl_rk4_march`."""
     _check_bl_args(y0, e, l_z, q, discs, spheres, vols, resume, ckpt_every, max_events)
     dtype, device = y0.dtype, y0.device
-    n = y0.shape[0]
     attempts = max_steps if attempts is None else int(attempts)
     c = _march_constants(radius, a, horizon_epsilon, h0, max_steps, max_radius, h_min_frac,
                          r_ref_scale, opaque_stop, compensated, dtype, device)
     c["half_pi"] = torch.tensor(math.pi / 2, dtype=dtype, device=device)
     discs = _rounded_discs(discs, dtype)
     spheres = tuple(spheres)
-    y = _lane_major_copy(y0)
+    y, *state = _initial_lanes(y0, resume, int(max_events))
     # Copies: the march writes the lanes' fields back in place.
     e, l_z, q = (v.detach().clone() for v in (e, l_z, q))
-    lanes = _BLLanes(
-        y, torch.zeros(n, dtype=torch.int32, device=device),
-        torch.zeros(n, dtype=torch.int32, device=device),
-        *_event_buffers(n, dtype, device, int(max_events)), torch.zeros_like(y), e, l_z, q,
-        1.0 / torch.clamp(torch.abs(e), min=1e-12),
-    )
+    lanes = _BLLanes(y, *state, torch.zeros_like(y), e, l_z, q, 1.0 / torch.clamp(torch.abs(e), min=1e-12))
 
     def batch_step(sub):
         delta = _replayed(lambda yy: _bl_rk4_delta(c, sub.e, sub.l_z, sub.q, sub.inv_e, c["r_plus"], yy), sub.y)
@@ -895,9 +915,10 @@ def march_bl_plain(
 # ---------------------------------------------------------------------------
 
 # The two kernels: K1 (Kerr-Schild) and K3 (Boyer-Lindquist). Entry points
-# take (y0[, e, l_z, q], n, outputs..., ckpt, params, discs, n_discs,
-# spheres, n_spheres, vols, n_vols, ints, stream) and return the CUDA error
-# code of the launch.
+# take (y0[, e, l_z, q], n, outputs..., ckpt, resume, params, discs,
+# n_discs, spheres, n_spheres, vols, n_vols, ints, stream) and return the
+# CUDA error code of the launch; resume is null or the six per-lane inputs
+# (stop, steps, ev_kind, ev_data, ev_count, ev_ovf) of a resumed march.
 _KERNELS = {
     False: ("kerr_rk4_march", "kerr_rk4_march.cu"),
     True: ("kerr_bl_rk4_march", "kerr_bl_march.cu"),
@@ -916,7 +937,7 @@ def _entry(bl, dtype):
         fn = getattr(lib, f"{stem}_f32" if dtype == torch.float32 else f"{stem}_f64")
         p = ctypes.c_void_p
         fn.argtypes = [p] * (4 if bl else 1) + [
-            ctypes.c_int64, p, p, p, p, p, p, p, p,
+            ctypes.c_int64, p, p, p, p, p, p, p, p, ctypes.POINTER(p),
             ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double), ctypes.c_int,
             ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.POINTER(ctypes.c_double), ctypes.c_int,
             ctypes.POINTER(ctypes.c_int), p,
@@ -926,16 +947,37 @@ def _entry(bl, dtype):
     return fn
 
 
+def disc_rows(discs):
+    """The (inner, outer, kind) rows of a kernel's disc table."""
+    return (ctypes.c_double * (3 * MAX_DISCS))(*[float(v) for d in discs for v in (d.inner, d.outer, d.kind)])
+
+
+def sphere_rows(spheres):
+    """The (radius, cx, cy, cz, radius², |c|, kind) rows of a kernel's
+    sphere table (csrc/sphere_events.cuh); R² and |c| in double, as the
+    plain version's Python floats are."""
+    return (ctypes.c_double * (7 * MAX_SPHERES))(
+        *[float(v) for s in spheres for v in (
+            s.radius, s.cx, s.cy, s.cz, s.radius * s.radius,
+            math.sqrt(s.cx * s.cx + s.cy * s.cy + s.cz * s.cz), s.kind,
+        )]
+    )
+
+
 def _march_cuda(y0, consts, params, discs, spheres, vols, max_steps, opaque_stop, attempts, finalize,
-                compensated, ckpt_every, max_events):
+                compensated, ckpt_every, max_events, resume=None):
     """Allocate the outputs and launch K1 (consts empty) or K3 (consts =
-    (e, l_z, q)); params are the kernel's float parameters in its order."""
+    (e, l_z, q)); params are the kernel's float parameters in its order.
+    A resumed march reads its lanes' state from the resume tuple (y in
+    place of y0) and writes fresh outputs."""
     global launches, bl_launches
     bl = bool(consts)
+    if resume is not None:
+        y0 = resume[0]
     n = y0.shape[0]
     dev, dtype = y0.device, y0.dtype
-    if not all(v.is_contiguous() for v in (y0, *consts)):
-        raise ValueError("the march takes contiguous y0, e, l_z, q")
+    if not all(v.is_contiguous() for v in (y0, *consts, *(resume or ()))):
+        raise ValueError("the march takes contiguous y0, e, l_z, q and resume tensors")
     y_out = torch.empty_like(y0)
     stop = torch.empty(n, dtype=torch.int32, device=dev)
     steps = torch.empty(n, dtype=torch.int32, device=dev)
@@ -946,16 +988,7 @@ def _march_cuda(y0, consts, params, discs, spheres, vols, max_steps, opaque_stop
     # Rows a lane never reaches stay unwritten (undefined), as on the TPU.
     ckpt = torch.empty((-(-attempts // ckpt_every), 8, n), dtype=dtype, device=dev) if ckpt_every else None
     params = (ctypes.c_double * len(params))(*[float(v) for v in params])
-    disc_rows = (ctypes.c_double * (3 * MAX_DISCS))(
-        *[float(v) for d in discs for v in (d.inner, d.outer, d.kind)]
-    )
-    # R² and |c| in double, as the plain version's Python floats are.
-    sphere_rows = (ctypes.c_double * (7 * MAX_SPHERES))(
-        *[float(v) for s in spheres for v in (
-            s.radius, s.cx, s.cy, s.cz, s.radius * s.radius,
-            math.sqrt(s.cx * s.cx + s.cy * s.cy + s.cz * s.cz), s.kind,
-        )]
-    )
+    resume_ptrs = None if resume is None else (ctypes.c_void_p * 6)(*(v.data_ptr() for v in resume[1:]))
     vol_rows = (ctypes.c_double * (4 * MAX_VOLS))(
         *[float(v) for vs in vols for v in (vs.inner, vs.outer, vs.cap_h, vs.kind)]
     )
@@ -973,8 +1006,9 @@ def _march_cuda(y0, consts, params, discs, spheres, vols, max_steps, opaque_stop
         err = fn(
             y0.data_ptr(), *(v.data_ptr() for v in consts), n, y_out.data_ptr(), stop.data_ptr(),
             steps.data_ptr(), ev_kind.data_ptr(), ev_data.data_ptr(), ev_count.data_ptr(),
-            ev_ovf.data_ptr(), None if ckpt is None else ckpt.data_ptr(), params, disc_rows,
-            len(discs), sphere_rows, len(spheres), vol_rows, len(vols), ints, stream.cuda_stream,
+            ev_ovf.data_ptr(), None if ckpt is None else ckpt.data_ptr(), resume_ptrs, params,
+            disc_rows(discs), len(discs), sphere_rows(spheres), len(spheres), vol_rows, len(vols), ints,
+            stream.cuda_stream,
         )
         if err != 0:
             raise RuntimeError(f"{_KERNELS[bl][0]} kernel launch failed: CUDA error {err}")
@@ -1009,16 +1043,21 @@ def kerr_rk4_march(
     z-axis volumetric discs, in that order within a step. r_safe > 0
     enables the far-field lever; opaque_stop stops a lane at its first disc
     or sphere event (exact when every texture is opaque); `attempts`
-    bounds the iterations (default max_steps); finalize=False leaves
-    unfinished lanes RUNNING instead of BUDGET; compensated selects the
-    Kahan state update. A CUDA tensor goes through the kernel, a CPU tensor
-    through `march_plain`."""
+    bounds this call's iterations (default max_steps); finalize=False
+    leaves unfinished lanes RUNNING instead of BUDGET; compensated selects
+    the Kahan state update. `resume`, a previous call's seven results,
+    continues that march: each lane's state, stop code, step count and
+    events carry over (its y replaces y0), max_steps stays the lane's total
+    budget, and the Kahan compensation restarts at zero; with
+    compensation off, legs of `attempts` iterations ending in
+    finalize=False give one march's results bit for bit. A CUDA tensor goes
+    through the kernel, a CPU tensor through `march_plain`."""
     _check_args(y0, discs, spheres, vols, resume, ckpt_every, max_events)
     if y0.device.type == "cpu":
         return march_plain(
             radius, a, horizon_epsilon, y0, h0, max_steps, max_radius, discs=discs, spheres=spheres,
             vols=vols, h_min_frac=h_min_frac, r_ref_scale=r_ref_scale, r_safe=r_safe,
-            opaque_stop=opaque_stop, attempts=attempts, finalize=finalize,
+            opaque_stop=opaque_stop, attempts=attempts, resume=resume, finalize=finalize,
             ckpt_every=ckpt_every, compensated=compensated, max_events=max_events,
         )
     if y0.device.type != "cuda":
@@ -1026,7 +1065,7 @@ def kerr_rk4_march(
     attempts = max_steps if attempts is None else int(attempts)
     params = (radius, a, horizon_epsilon, h0, max_radius, h_min_frac, r_ref_scale, r_safe)
     return _march_cuda(y0, (), params, tuple(discs), tuple(spheres), tuple(vols), max_steps, opaque_stop,
-                       attempts, finalize, compensated, int(ckpt_every), int(max_events))
+                       attempts, finalize, compensated, int(ckpt_every), int(max_events), resume)
 
 
 def kerr_bl_rk4_march(
@@ -1037,8 +1076,8 @@ def kerr_bl_rk4_march(
     """The Carter-separated Mino-time march of N rays from y0 [N, 8] =
     (t, r, θ, φ, v_r, v_θ, 0, 0) with their conserved E, L_z, Q [N].
 
-    Same options and results as `kerr_rk4_march`, without the far-field
-    lever. Disc, sphere and volume events record the Kerr-Schild embedding
+    Same options (`resume` too) and results as `kerr_rk4_march`, without
+    the far-field lever; a resumed leg takes the lanes' E, L_z, Q again. Disc, sphere and volume events record the Kerr-Schild embedding
     of the crossing point, the interpolated BL contravariant momentum and
     the embedded segment (sphere and volume roots are found on the embedded
     chord, after a near test in BL). A
@@ -1049,12 +1088,12 @@ def kerr_bl_rk4_march(
         return march_bl_plain(
             radius, a, horizon_epsilon, y0, e, l_z, q, h0, max_steps, max_radius, discs=discs,
             spheres=spheres, vols=vols, h_min_frac=h_min_frac, r_ref_scale=r_ref_scale, opaque_stop=opaque_stop,
-            attempts=attempts, finalize=finalize, compensated=compensated, ckpt_every=ckpt_every,
-            max_events=max_events,
+            attempts=attempts, resume=resume, finalize=finalize, compensated=compensated,
+            ckpt_every=ckpt_every, max_events=max_events,
         )
     if y0.device.type != "cuda":
         raise ValueError(f"unsupported device {y0.device}")
     attempts = max_steps if attempts is None else int(attempts)
     params = (radius, a, horizon_epsilon, h0, max_radius, h_min_frac, r_ref_scale)
     return _march_cuda(y0, (e, l_z, q), params, tuple(discs), tuple(spheres), tuple(vols), max_steps,
-                       opaque_stop, attempts, finalize, compensated, int(ckpt_every), int(max_events))
+                       opaque_stop, attempts, finalize, compensated, int(ckpt_every), int(max_events), resume)

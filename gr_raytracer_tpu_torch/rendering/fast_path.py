@@ -163,7 +163,7 @@ def _prepare_march(scene, positions, momenta):
     return solver, y0, freq, inverse
 
 
-def _run_kernel(spec: KernelSpec, cfg, solver, y0):
+def _run_kernel(spec: KernelSpec, cfg, solver, y0, attempts=None, resume=None, finalize=True):
     """The march; returns the raw 7-tuple (y, stop, steps, ev_kind, ev_data,
     ev_count, ev_overflow).
 
@@ -171,15 +171,23 @@ def _run_kernel(spec: KernelSpec, cfg, solver, y0):
     h0 = 0.01 (a far-field spatial step of ~h0·r_ref² = 1) and twice the
     budget, because the fixed Mino step is finer than the adaptive
     controller's steps near the hole, and near-critical rays would stop
-    TRAPPED at the nominal count."""
+    TRAPPED at the nominal count.
+
+    `attempts` bounds this call's iterations; `resume`, a previous call's
+    7-tuple, continues its march (the budget stays the lanes' total);
+    finalize=False leaves unfinished lanes RUNNING. A resumed leg restarts
+    the Kahan compensation at zero, one more rounding per leg on deep
+    budgets; below DEEP_BUDGET_COMPENSATION legs give one march's results
+    bit for bit."""
     compensated = cfg.max_steps >= DEEP_BUDGET_COMPENSATION
+    legs = dict(attempts=attempts, resume=resume, finalize=finalize)
     if spec.mino:
         return gm.kerr_bl_rk4_march(
             spec.radius, spec.a, spec.horizon_epsilon, y0, solver.e.contiguous(),
             solver.l_z.contiguous(), solver.q.contiguous(), h0=0.01,
             max_steps=2 * cfg.max_steps, max_radius=cfg.max_radius, discs=spec.discs,
             spheres=spec.spheres, vols=spec.vols, opaque_stop=spec.opaque, compensated=compensated,
-            max_events=cfg.max_events,
+            max_events=cfg.max_events, **legs,
         )
     return gm.kerr_rk4_march(
         spec.radius,
@@ -196,6 +204,7 @@ def _run_kernel(spec: KernelSpec, cfg, solver, y0):
         opaque_stop=spec.opaque,
         compensated=compensated,
         max_events=cfg.max_events,
+        **legs,
     )
 
 
@@ -316,22 +325,24 @@ def trace_rays_fast_vol(scene, positions, momenta, spec=None) -> VolTrace:
 
 
 def supports_diff(scene) -> bool:
-    """Reverse mode through the march (ops/geodesic_adjoint.py) covers Kerr,
-    KerrBL and Schwarzschild with thin discs whose textures are all opaque:
-    slot-0 shading is then exact, and the adjoint takes one payload
-    cotangent per lane at its last step. A scene with a sphere is refused:
-    the reverse sweep has no sphere payload yet."""
-    return (
-        bool(scene.objects) and supports_scene(scene) and not any(isinstance(o, Sphere) for o in scene.objects)
-        and scene_kernel_spec(scene).opaque
-    )
+    """Reverse mode through the march (ops/geodesic_adjoint.py) covers
+    scenes whose textures are all opaque (slot-0 shading is then exact, and
+    the adjoint takes one payload cotangent per lane at its last step):
+    Kerr (the Kerr-Schild sweep) with thin discs and spheres, the payload
+    picked per lane by the slot-0 kind; KerrBL and Schwarzschild (the
+    Mino-time sweep) with thin discs only, as in the JAX package, whose BL
+    sweep has no sphere payload."""
+    if not scene.objects or not supports_scene(scene) or not scene_kernel_spec(scene).opaque:
+        return False
+    kinds = (Disc, Sphere) if isinstance(scene.geometry, Kerr) else (Disc,)
+    return all(isinstance(o, kinds) for o in scene.objects)
 
 
 def trace_rays_fast_diff(scene, positions, momenta, spec=None, k_ckpt=None):
     """Differentiable `trace_rays_fast` on supports_diff scenes: gradients
     flow through the final state (sky shading) and the slot-0 event payload
-    (disc shading), and through every step of the march to the metric
-    parameters radius and a; on the Mino-time march also through each ray's
+    (disc and sphere shading), and through every step of the march to the
+    metric parameters radius and a; on the Mino-time march also through each ray's
     (E, L_z, Q) back into the camera and the metric (the solver's
     construction is plain torch). Discrete decisions (stop codes, the
     crossing step, the cost sort) are locally constant. The disc bounds of
@@ -344,8 +355,8 @@ def trace_rays_fast_diff(scene, positions, momenta, spec=None, k_ckpt=None):
         if not supports_diff(scene):
             raise ValueError("scene shape unsupported by the differentiable kernel path")
         spec = scene_kernel_spec(scene)
-    if spec.spheres:
-        raise ValueError("the differentiable kernel path has no sphere payload yet")
+    if spec.spheres and spec.mino:
+        raise ValueError("the differentiable Mino-time march has no sphere payload (nor has the JAX package's)")
     solver, y0, freq, inverse = _prepare_march(scene, positions, momenta)
     cfg = scene.integration
     geometry = _march_geometry_of(scene)
@@ -359,7 +370,8 @@ def trace_rays_fast_diff(scene, positions, momenta, spec=None, k_ckpt=None):
                     solver.e, solver.l_z, solver.q, y0)
     else:
         march = gadj.make_ks_march_diff(
-            h0=1.0, max_steps=cfg.max_steps, discs=spec.discs, r_safe=spec.r_safe, k_ckpt=k_ckpt,
+            h0=1.0, max_steps=cfg.max_steps, discs=spec.discs, spheres=spec.spheres, r_safe=spec.r_safe,
+            k_ckpt=k_ckpt,
         )
         out = march(geometry.radius, geometry.a, geometry.horizon_epsilon, cfg.max_radius, y0)
     y_f, ev_data, stop, steps, ev_kind, ev_count, ev_ovf = out

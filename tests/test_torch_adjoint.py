@@ -169,9 +169,16 @@ def test_step_vjp_matches_jax():
     for g, w in zip(got, want):
         scale = np.abs(w).max()
         assert np.abs(g.numpy() - w).max() <= 1e-10 * scale
-    with pytest.raises(NotImplementedError):
-        tadj._step_with_payload((), (object(),), ev_kind0=t(kind0), radius=r_t, a=a_t, y=y_t,
-                                active=t(active), **step_kw)
+    # A scene of spheres alone takes the sphere payload on every lane: the
+    # rows of the mixed scene's sphere lanes (tests/test_torch_sphere_adjoint.py
+    # holds the sphere payload against JAX's).
+    sphere = (gm.SphereSpec(3.0, 0.0, 0.0, 0.0, 2),)
+    kind2 = torch.full((n,), 2, dtype=torch.int32)
+    mixed = tadj._step_with_payload(tuple(gm.DiscSpec(*d) for d in discs), sphere, ev_kind0=kind2, radius=r_t,
+                                    a=a_t, y=y_t, active=t(active), **step_kw)[1]
+    alone = tadj._step_with_payload((), sphere, ev_kind0=kind2, radius=r_t, a=a_t, y=y_t, active=t(active),
+                                    **step_kw)[1]
+    assert torch.equal(mixed, alone) and not torch.equal(alone, payload)
 
 
 def test_checkpoint_rows_match_jax(ref):
@@ -251,9 +258,14 @@ def test_spin_gradient_matches_finite_difference(port):
 
 
 def test_unported_scenes_are_refused():
+    """The differentiable Kerr-Schild march takes discs, spheres or both; it
+    refuses a sphere that is not a SphereSpec and a scene with neither."""
     scene = _port_build(tpresets.params_from_numpy(jax_flagship_params(), F64, CPU))
     assert tfp.supports_diff(scene)
-    with pytest.raises(NotImplementedError):
+    sphere = gm.SphereSpec(3.0, 0.0, 0.0, 0.0, 1)
+    for discs, spheres in (((gm.DiscSpec(1.0, 6.0, 0),), (sphere,)), ((), (sphere,))):
+        assert callable(tadj.make_ks_march_diff(h0=1.0, max_steps=10, discs=discs, spheres=spheres, r_safe=30.0))
+    with pytest.raises(TypeError):
         tadj.make_ks_march_diff(h0=1.0, max_steps=10, discs=(gm.DiscSpec(1.0, 6.0, 0),), spheres=(object(),), r_safe=30.0)
     with pytest.raises(ValueError):
         tadj.make_ks_march_diff(h0=1.0, max_steps=10, discs=(), r_safe=30.0)

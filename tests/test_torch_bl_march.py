@@ -132,7 +132,9 @@ def test_bl_rhs_and_momentum_match_jax():
 
 
 def test_bl_wrapper_rejects_unported_options():
-    """resume is not ported; spheres are, up to MAX_SPHERES SphereSpecs."""
+    """Malformed options raise: spheres up to MAX_SPHERES SphereSpecs,
+    volumes up to MAX_VOLS, and a resume tuple of a march of the same lanes
+    (tests/test_torch_resume.py holds resumed legs against one shot)."""
     y0 = torch.zeros((4, 8), dtype=F64)
     c = torch.ones(4, dtype=F64)
     args = (1.0, 0.45, 1e-3, y0, c, c, c, 0.01, 10, 40.0)
@@ -144,8 +146,10 @@ def test_bl_wrapper_rejects_unported_options():
     assert gm.kerr_bl_rk4_march(*args, spheres=(sphere,) * gm.MAX_SPHERES)[0].shape == (4, 8)
     with pytest.raises(NotImplementedError):
         gm.kerr_bl_rk4_march(*args, vols=(gm.VolSpec(3.0, 6.0, 0.3, 0),) * (gm.MAX_VOLS + 1))
-    with pytest.raises(NotImplementedError):
-        gm.kerr_bl_rk4_march(*args, resume=gm.kerr_bl_rk4_march(*args))
+    prev = gm.kerr_bl_rk4_march(*args)
+    assert gm.kerr_bl_rk4_march(*args, resume=prev)[0].shape == (4, 8)
+    with pytest.raises(ValueError):
+        gm.kerr_bl_rk4_march(*args, resume=prev[:1] + (prev[1].long(),) + prev[2:])
     with pytest.raises(ValueError):
         gm.kerr_bl_rk4_march(1.0, 0.45, 1e-3, y0, c[:3], c, c, 0.01, 10, 40.0)
     with pytest.raises(ValueError):

@@ -90,7 +90,9 @@ def test_rhs_matches_jax_analytic_and_autodiff():
 
 
 def test_wrapper_rejects_unported_options():
-    """resume is not ported; spheres are, up to MAX_SPHERES SphereSpecs."""
+    """Malformed options raise: spheres up to MAX_SPHERES SphereSpecs, and a
+    resume tuple of a march of the same lanes (tests/test_torch_resume.py
+    holds resumed legs against one shot and against JAX)."""
     y0 = torch.zeros((4, 8), dtype=torch.float64)
     args = (1.0, 0.45, 1e-3, y0, 1.0, 10, 40.0)
     with pytest.raises(TypeError):
@@ -99,8 +101,10 @@ def test_wrapper_rejects_unported_options():
     with pytest.raises(NotImplementedError):
         gm.kerr_rk4_march(*args, spheres=(sphere,) * (gm.MAX_SPHERES + 1))
     assert gm.kerr_rk4_march(*args, spheres=(sphere,) * gm.MAX_SPHERES)[0].shape == (4, 8)
-    with pytest.raises(NotImplementedError):
-        gm.kerr_rk4_march(*args, resume=gm.kerr_rk4_march(*args))
+    prev = gm.kerr_rk4_march(*args)
+    assert gm.kerr_rk4_march(*args, resume=prev)[0].shape == (4, 8)
+    with pytest.raises(ValueError):
+        gm.kerr_rk4_march(*args, resume=tuple(v[:3] for v in prev))
     with pytest.raises(ValueError):
         gm.kerr_rk4_march(*args, ckpt_every=-1)
     with pytest.raises(ValueError):

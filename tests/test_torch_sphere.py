@@ -7,7 +7,8 @@ and payloads within 1e-9 of each lane's scale); `trace_rays_fast` against
 the JAX kernel path (colors within 1e-8 relative) on the disc and sphere
 scenes of tests/test_pallas.py and on a flat (r_s = 0) scene of
 schwarzschild-sphere.toml's shape; the loader on the three sphere scene
-files; the gradient path's refusal of sphere scenes. On a card, the CUDA
+files; the gradient path on sphere scenes (Kerr taken, the Mino-time march's
+refused). On a card, the CUDA
 kernels with sphere events are held against their plain versions."""
 
 import jax
@@ -193,13 +194,18 @@ def test_loader_builds_sphere_scenes_like_jax():
 
 
 def test_gradient_path_refuses_sphere_scenes():
-    """supports_diff is false on every sphere scene and the differentiable
-    march raises on one, whatever spec it is handed; the disc-only scene
-    stays differentiable."""
+    """The gradient path refuses the sphere scenes of the Mino-time march
+    (Schwarzschild and the flat r_s = 0 one: the BL sweep has no sphere
+    payload, in the JAX package either), whatever spec it is handed; it
+    takes the Kerr disc and sphere scene (its gradient against JAX's is in
+    tests/test_torch_sphere_adjoint.py) and the disc-only one."""
     for name in SCENES:
         _, scene = _scenes(name, 4, 4)
-        assert tfp.supports_scene(scene) and not tfp.supports_diff(scene)
         x, p = tcam.pixel_rays(scene.camera, *(t(a) for a in pixel_grid(4, 4)))
+        assert tfp.supports_scene(scene) and tfp.supports_diff(scene) == (name == "kerr")
+        if name == "kerr":
+            assert torch.isfinite(tfp.trace_rays_fast_diff(scene, x, p).color).all()
+            continue
         with pytest.raises(ValueError):
             tfp.trace_rays_fast_diff(scene, x, p)
         with pytest.raises(ValueError):

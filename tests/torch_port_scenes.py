@@ -3,6 +3,7 @@ package: the same scene, built by both from the same numbers, in float64
 on the CPU."""
 
 import dataclasses
+import functools
 import math
 import os
 
@@ -16,6 +17,7 @@ from gr_raytracer_tpu.geometry.kerr import Kerr as JKerr
 from gr_raytracer_tpu.rendering import camera as jcam
 from gr_raytracer_tpu_torch import config as tcfg
 from gr_raytracer_tpu_torch import presets as tpresets
+from gr_raytracer_tpu_torch.geometry.kerr import Kerr as TKerr
 from gr_raytracer_tpu_torch.rendering import camera as tcam
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -84,6 +86,58 @@ height = 6.0
 color1 = [255, 0, 0]
 color2 = [90, 0, 0]
 """
+# The KerrBL disc scene of tests/test_pallas.py (kerr_bl_scene, the scene
+# of test_kernel_march_resume_bl): a = 0.45, a blackbody disc 2–6.
+KERR_BL_DISC_SCENE_TOML = """
+celestial_temperature = 0.0
+[celestial_texture.Checker]
+beaming_exponent = 0.0
+width = 18.0
+height = 9.0
+color1 = [40, 40, 120]
+color2 = [5, 5, 20]
+[geometry_type.KerrBL]
+radius = 1.0
+a = 0.45
+horizon_epsilon = 1e-3
+[[objects]]
+[objects.Disc]
+inner_radius = 2.0
+outer_radius = 6.0
+temperature = 5000.0
+[objects.Disc.texture.BlackBody]
+beaming_exponent = 3.0
+"""
+KERR_BL_DISC_SCENE_OPTIONS = dict(
+    max_steps=3000, max_radius=40.0, step_size=0.01, camera_position=(-10.0, 0.0, -0.5), theta=-math.pi,
+)
+# The disc and sphere probe of tests/test_adjoint.py (sphere_loss_fn):
+# kerr-sphere.toml (bitmap disc 3–5, bitmap sphere R = 3 at the origin)
+# with a Kerr hole of r_s = 1, a = 0.499 put in after the scene is built,
+# framed so that both kinds land in slot 0 of a 4×8 frame.
+SPHERE_PROBE_OPTIONS = dict(
+    width=8, height=4, max_steps=400, max_radius=30.0, camera_position=(-10.0, 0.0, -2.5), theta=1.35,
+    psi=-1.57,
+)
+SPHERE_PROBE_HOLE = (1.0, 0.499)
+
+
+@functools.lru_cache(maxsize=1)
+def sphere_probe_scenes():
+    """(JAX scene, port scene) of the disc and sphere probe, float64; built
+    once a process (three 2048² bitmaps on each side)."""
+    path = os.path.join(REPO, "scene-definitions", "kerr-sphere.toml")
+    radius, a = SPHERE_PROBE_HOLE
+    j_scene = jcfg.create_scene_host(jcfg.load_config(path), jcfg.RenderOptions(**SPHERE_PROBE_OPTIONS), jnp.float64)
+    j_scene = j_scene.replace(geometry=JKerr(
+        radius=jnp.asarray(radius), a=jnp.asarray(a), horizon_epsilon=j_scene.geometry.horizon_epsilon))
+    t_scene = tcfg.create_scene(tcfg.load_config(path), tcfg.RenderOptions(**SPHERE_PROBE_OPTIONS), F64, CPU)
+    t_scene = dataclasses.replace(t_scene, geometry=TKerr(
+        radius=torch.tensor(radius, dtype=F64), a=torch.tensor(a, dtype=F64),
+        horizon_epsilon=t_scene.geometry.horizon_epsilon))
+    return j_scene, t_scene
+
+
 KERR_SPHERE_SCENE_TOML = _SPHERE_SCENE.format(geometry="Kerr", radius=0.4, spin="a = 0.15\n")
 SCHWARZSCHILD_SPHERE_SCENE_TOML = _SPHERE_SCENE.format(geometry="Schwarzschild", radius=0.5, spin="")
 # schwarzschild-sphere.toml's shape (r_s = 0) with the checker textures.
