@@ -7,7 +7,9 @@ Needs one CUDA card and the CUDA toolkit. Phases, each of which exits
 non-zero on failure:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel);
+  2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
+     and print each kernel's registers, spill stores and resident warps
+     per SM (ptxas);
   3. the march kernel K1 against its plain torch version on the card, on
      65,536 kerr.toml camera rays (the frame's middle CLI chunk) at a
      20,000-step budget, in float32 and float64 with the Kahan update off
@@ -56,27 +58,38 @@ non-zero on failure:
      that K1 chunk, float32 and float64, with the march budget cut to
      VOL_COMPARE_STEPS samples (the plain loop costs milliseconds per
      sample whatever the lane count); then K5 alone at the scene's full
-     50,000-sample budget;
+     50,000-sample budget, and the warp efficiency E of one thread per
+     lane on those lanes (Σ samples over Σ warps of 32 × the warp's
+     longest lane, in the lanes' sorted order);
  15. the volumetric main path: the CLI `render` of kerr-volumetric-streaky
      at 500×500 (docs/examples.md), float32, 4×4 AA; K1 and K5 must
      launch, the frame must show horizon and sky and K5 lanes that emit;
      it prints the rays re-traced because they overflowed their 8 event
-     slots, and, as a fault, those that overflowed the re-trace's 32 too;
+     slots, and, as a fault, those that overflowed the re-trace's 32 too,
+     and E of each K5 launch and of the frame;
  16. the BL volumetric path: the CLI `render` of
-     kerr-bl-volumetric-streaky at 256×256 through K3 and K5;
+     kerr-bl-volumetric-streaky at 256×256 through K3 and K5 (E of its
+     first launch too);
  17. the raw-output raymarch K6 against its plain version on phase 14's
      lanes, float32 and float64, at VOL_COMPARE_STEPS samples; its results
      combined (combine_alpha) against K5's XYZA; K6 alone at 50,000;
  18. the volumetric backward K7 against its plain version on the same
      lanes with seeded cotangents, float64 and float32, at
      VOL_BWD_COMPARE_STEPS samples (K2's bars); K7 alone at 50,000;
+ 18b. K7's five medium sums in float64 on those lanes at the full 50,000-
+     sample budget against central differences of K6 on the same lanes
+     and cotangents (L = Σ ct·(acc, T_f, Ws, Wt), a step of 1e-5 of each
+     parameter) over the lanes whose saturation step does not move within
+     the step (there Ws and Wt jump; the difference over all lanes is
+     printed beside it): within 1e-5 relative;
  19. the volumetric gradient path of scripts/grad_scale_probe.py --vol
      (kerr-volumetric-streaky 256², hero #5's camera, budget 20,000, the
      TOML's 50,000-sample raymarch, float32): one value and gradient of its
      loss over the five medium parameters (finite; K1, K6 and K7 must
      launch), then the first 20 steps of its 60-step density_multiplier and
      absorption fit from (300, 0.6): the loss must fall and both must move
-     toward (500, 0.3); where a step's time goes;
+     toward (500, 0.3); where a step's time goes; E on the frame's
+     volumetric lanes;
  20. one value and gradient on kerr-bl-volumetric-streaky at 128² through
      K3, K6 and K7: finite and nonzero;
  21. K1 with sphere events against its plain version, float32 and
@@ -130,9 +143,15 @@ non-zero on failure:
      of half the slowest lane's steps, finalize off, leaving lanes
      RUNNING) against one shot: all seven results equal; each leg against
      its plain version (K3's over legs of 2,000 iterations);
- 31. one JSON line {"kernels": [...]} with each kernel's launches, error
+ 31. the cost of -fmad=false: vol_raymarch.cu and vol_adjoint.cu built
+     once more with FMA contraction (ops/cuda_build.py NVCC_FLAGS_FMA, in
+     a subdirectory of build/torch_kernels/ that no path of the port
+     loads); K5 and K7 in float32 on phase 14's lanes at the full budget,
+     the two builds in turns: the time ratio and the share of lanes whose
+     results differ (bar: finite outputs);
+ 32. one JSON line {"kernels": [...]} with each kernel's launches, error
      against its plain version, times and bound;
- 32. the last line: {"ok": true, "device": {...}}.
+ 33. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -216,6 +235,10 @@ VOL_COMPARE_STEPS = 2000
 # forward sample and its torch.autograd VJP, ~1,000 torch ops) costs several
 # times K5's plain sample, so this keeps each plain run near twenty seconds.
 VOL_BWD_COMPARE_STEPS = 400
+# Phase 18b: K7's medium sums at the full budget against central differences
+# of K6, in float64: the step is this fraction of each parameter.
+VOL_FD_STEP = 1e-5
+VOL_FD_BAR = 1e-5  # relative
 # The volumetric gradient path: scripts/grad_scale_probe.py --vol (hero #5's
 # camera at 256², budget 20,000, the TOML's 50,000-sample raymarch; the fit
 # of density_multiplier and absorption from 0.6× and 2× their true values,
@@ -336,6 +359,41 @@ def nvidia_smi(query):
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def resident_warps(registers, threads=128):
+    """Warps an SM holds at `registers` a thread for blocks of `threads`
+    (Hopper: 65,536 registers an SM, allocated 256 a warp at a time; at
+    most 64 warps)."""
+    per_warp = -(-registers * 32 // 256) * 256
+    warps_per_block = threads // 32
+    blocks = (65_536 // per_warp) // warps_per_block
+    return min(blocks * warps_per_block, 64)
+
+
+def ptxas_summary(log):
+    """[{kernel, registers, spill_stores, resident_warps}] of each entry
+    function in nvcc's -Xptxas -v report (the kernel's name and type)."""
+    import re
+
+    rows, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)I([fd])(?:Lb([01]))?", m.group(1))
+            name = (f"{k.group(1)} {'f32' if k.group(2) == 'f' else 'f64'}{' raw' if k.group(3) == '1' else ''}"
+                    if k else m.group(1)[:48])
+            spill = 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            regs = int(m.group(1))
+            rows.append({"kernel": name, "registers": regs, "spill_stores": spill,
+                         "resident_warps": resident_warps(regs)})
+            name = None
+    return rows
 
 
 def count_ops(fn):
@@ -1347,6 +1405,53 @@ def lane_errors(got, ref):
     return torch.where(scale > 0, diff / scale.clamp(min=1e-300), got.abs().amax(dim=1))
 
 
+def warp_efficiency(samples):
+    """E = Σ n_i / Σ over warps of (32 × the warp's largest n), the warp
+    efficiency of one thread per lane in the lane order the kernel is given
+    (32 consecutive lanes a warp; the last warp padded with empty lanes)."""
+    import torch
+
+    n = samples.long()
+    pad = (-n.numel()) % 32
+    warps = torch.cat([n, n.new_zeros(pad)]).view(-1, 32)
+    slots = 32 * int(warps.amax(dim=1).sum())
+    return int(n.sum()) / slots if slots else 1.0
+
+
+class RaymarchSamples:
+    """Keeps the per-lane sample counts of every K5 launch of the main path
+    (vm.raymarch's second result) by wrapping vm.raymarch; the counts stay
+    on the card until read."""
+
+    def __enter__(self):
+        from gr_raytracer_tpu_torch.ops import volumetric_march as vm
+
+        self.module, self.inner = vm, vm.raymarch
+        self.launches = []
+
+        def raymarch(*args, **kwargs):
+            out = self.inner(*args, **kwargs)
+            self.launches.append(out[1])
+            return out
+
+        vm.raymarch = raymarch
+        return self
+
+    def __exit__(self, *exc):
+        self.module.raymarch = self.inner
+
+    def efficiency(self):
+        """E of the first launch, of each launch, and of the frame (Σ n over
+        Σ warp slots of every launch)."""
+        per_launch = [warp_efficiency(n) for n in self.launches]
+        total = sum(int(n.long().sum()) for n in self.launches)
+        slots = sum(int(n.long().sum()) / e for n, e in zip(self.launches, per_launch) if e > 0)
+        return {"first_launch": per_launch[0] if per_launch else None,
+                "frame": total / slots if slots else None, "per_launch": per_launch,
+                "lanes": [int(n.numel()) for n in self.launches],
+                "max_samples": max((int(n.max()) for n in self.launches if n.numel()), default=0)}
+
+
 def compare_raymarch(dtype, ops):
     """K5 against its plain version on the volumetric lanes of the main
     path's middle chunk (the kerr-volumetric-streaky 500² frame), both with
@@ -1384,6 +1489,7 @@ def compare_raymarch(dtype, ops):
         "lanes_alpha_gt_0": int((out[:, 3] > 0).sum()), "finite": bool(torch.isfinite(out).all()),
         "samples_per_s": samples / (full_ms / 1e3), "bound_ms": bound_ms, "bound_by": bound_by,
         "lane_rel_err_max": float(lane_err.max()), "max_abs_err": float(tone_err.max()),
+        "warp_efficiency": warp_efficiency(n_full),
     }
     if dtype == torch.float64:
         r["lanes_within_tol"] = float((lane_err <= F64_RTOL).double().mean())
@@ -1395,10 +1501,11 @@ def compare_raymarch(dtype, ops):
     return r
 
 
-def vol_frame_summary(out, png, size, total_s, ran, what, ops):
+def vol_frame_summary(out, png, size, total_s, ran, what, ops, efficiency):
     """The checks and numbers of a volumetric CLI frame: horizon and sky
     rays, emitting K5 lanes, each kernel of `ran` (cli_render's) launched,
-    its ms, K5's share of the frame, the rays re-traced because they
+    its ms, K5's share of the frame and the warp efficiency of its
+    launches (RaymarchSamples.efficiency), the rays re-traced because they
     overflowed their event slots, and (printed as a fault) those that
     overflow the re-trace's slots too."""
     import torch
@@ -1431,6 +1538,7 @@ def vol_frame_summary(out, png, size, total_s, ran, what, ops):
         "k5_launches": k5_launches, "k5_ms": k5_ms,
         "k5_share": k5_ms / 1e3 / total_s, "k5_samples_per_s": samples / max(k5_ms / 1e3, 1e-9),
         "k5_bound_ms": raymarch_bound_ms(samples, pass1.vol_lanes + aa.vol_lanes, ops, torch.float32)[0],
+        "k5_warp_efficiency": efficiency,
     })
     for label, (launches, ms) in ran.items():
         if label != "K5":
@@ -1594,6 +1702,147 @@ def compare_vol_adjoint(dtype, ops):
     return res
 
 
+def k7_fd_check():
+    """Phase 18b: K7's five medium sums in float64 on phase 14's lanes at
+    the scene's full budget against central differences of K6 on the same
+    lanes: L = Σ ct·(acc, T_f, Ws, Wt) with phase 18's seeded cotangents,
+    a step of VOL_FD_STEP times each parameter.
+
+    The march's exit step is locally constant in the gradient (as in the
+    JAX package), but a parameter that moves a lane's transparency moves
+    its saturation step, and there the alpha weights Ws and Wt, which do
+    not fade with the transparency, jump by a sample's ρ·d_s. So each
+    parameter's difference is taken over the lanes whose sample count (K5
+    at the same medium: in float64 K5 and K6 march bit-identically) is the
+    same at both steps as at the centre, as phase 29 drops the pixels with
+    a texel jump; the difference over every lane is printed beside it."""
+    import numpy as np
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import volumetric_adjoint as va
+    from gr_raytracer_tpu_torch.ops import volumetric_march as vm
+
+    dtype = torch.float64
+    vol_spec, lanes, med = vol_chunk_lanes(dtype)
+    n = lanes[0].shape[0]
+    ct = torch.as_tensor(np.random.default_rng(0).normal(size=(n, 6)), dtype=dtype, device="cuda")
+    fields = ("density_multiplier", "noise_offset", "absorption", "scattering", "brightness_ref")
+
+    def per_lane_loss(m):
+        acc, t_f, ws, wt = vm.raymarch_raw(vol_spec, m, *lanes)
+        raw = torch.cat([acc, t_f[:, None], ws[:, None], wt[:, None]], dim=1)
+        return torch.sum(ct * raw, dim=1), acc, t_f
+
+    def samples_at(m):
+        spec = vol_spec._replace(**{f: float(v) for f, v in zip(fields, m.tolist())})
+        return vm.raymarch(spec, *lanes)[1]
+
+    _, acc, t_f = per_lane_loss(med)
+    cts = torch.cat([ct, torch.sum(ct[:, :3] * acc, dim=-1)[:, None], t_f[:, None]], dim=1).contiguous()
+    _, d_med = va.vol_march_bwd(vol_spec, med, *lanes, cts)
+    centre = samples_at(med)
+    r = {"kernel": "K7", "check": "full-budget medium sums against central differences of K6", "dtype": "float64",
+         "lanes": n, "budget": vol_spec.max_steps, "step": VOL_FD_STEP, "bar": VOL_FD_BAR,
+         "names": list(vm.MED_NAMES), "k7_sums": [], "k6_central_differences": [], "rel_err": [],
+         "lanes_exit_moved": [], "all_lanes": {"k7_sums": [float(v) for v in d_med.sum(0)],
+                                               "k6_central_differences": [], "rel_err": []}}
+    for i in range(len(vm.MED_NAMES)):
+        h = VOL_FD_STEP * abs(float(med[i]))
+        step = torch.zeros_like(med)
+        step[i] = h
+        plus, minus = per_lane_loss(med + step)[0], per_lane_loss(med - step)[0]
+        keep = (samples_at(med + step) == centre) & (samples_at(med - step) == centre)
+        fd_all = float(torch.sum(plus - minus)) / (2.0 * h)
+        fd = float(torch.sum((plus - minus)[keep])) / (2.0 * h)
+        got = float(d_med[keep, i].sum())
+        r["k7_sums"].append(got)
+        r["k6_central_differences"].append(fd)
+        r["rel_err"].append(abs(got - fd) / max(abs(fd), 1e-300))
+        r["lanes_exit_moved"].append(int((~keep).sum()))
+        r["all_lanes"]["k6_central_differences"].append(fd_all)
+        r["all_lanes"]["rel_err"].append(abs(r["all_lanes"]["k7_sums"][i] - fd_all) / max(abs(fd_all), 1e-300))
+    r["ok"] = all(e <= VOL_FD_BAR for e in r["rel_err"]) and all(np.isfinite(r["k7_sums"]))
+    return r
+
+
+def _bound_like(fn, lib, name):
+    """The C entry point `name` of `lib`, with the argument types of the
+    port's own binding `fn`."""
+    other = getattr(lib, name)
+    other.argtypes, other.restype = fn.argtypes, fn.restype
+    return other
+
+
+def fma_cost_phase():
+    """Phase 31: vol_raymarch.cu and vol_adjoint.cu built once more without
+    -fmad=false (cuda_build.NVCC_FLAGS_FMA, in a subdirectory of their own;
+    no path of the port loads them). K5 and K7 in float32 on phase 14's
+    lanes at the full budget, the bit-identical build and the FMA build in
+    turns (default, FMA, FMA, default): the time ratio and the share of
+    lanes whose results differ. The only bar is finite outputs."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import cuda_build
+    from gr_raytracer_tpu_torch.ops import volumetric_adjoint as va
+    from gr_raytracer_tpu_torch.ops import volumetric_march as vm
+
+    t0 = time.perf_counter()
+    fma = {src: cuda_build.load(src, cuda_build.NVCC_FLAGS_FMA) for src in ("vol_raymarch.cu", "vol_adjoint.cu")}
+    build_s = time.perf_counter() - t0
+    registers = {key: ptxas_summary(log) for key, (_, log) in cuda_build.BUILD_LOG.items() if key.startswith("flags-")}
+    dtype = torch.float32
+    vol_spec, lanes, med = vol_chunk_lanes(dtype)
+    n = lanes[0].shape[0]
+    ins = (lanes[0], lanes[1], lanes[2], lanes[3], lanes[4], lanes[6], lanes[5])  # ro, rd, obs_e, p_t, p_phi, exit_d, active
+    hp = vm._host_params(vol_spec)
+    k5_fma = _bound_like(vm._entry(dtype), fma["vol_raymarch.cu"], "vol_raymarch_f32")
+    k7_fma = _bound_like(va._entry(dtype), fma["vol_adjoint.cu"], "vol_adjoint_f32")
+
+    def k5_with_fma():
+        out = torch.empty((n, 4), dtype=dtype, device="cuda")
+        samples = torch.empty(n, dtype=torch.int32, device="cuda")
+        vm._launch("vol_raymarch (FMA)", k5_fma, None, torch.device("cuda"), ctypes.byref(hp),
+                   *(v.data_ptr() for v in ins), n, out.data_ptr(), samples.data_ptr())
+        return out, samples
+
+    ct = torch.as_tensor(np.random.default_rng(0).normal(size=(n, 6)), dtype=dtype, device="cuda")
+    acc, t_f, _, _ = vm.raymarch_raw(vol_spec, med, *lanes)
+    cts = torch.cat([ct, torch.sum(ct[:, :3] * acc, dim=-1)[:, None], t_f[:, None]], dim=1).contiguous()
+
+    def k7_with_fma():
+        d_in = torch.empty((n, va.DIN_VARS), dtype=dtype, device="cuda")
+        d_med = torch.empty((n, va.N_MED), dtype=dtype, device="cuda")
+        vm._launch("vol_adjoint (FMA)", k7_fma, None, torch.device("cuda"), ctypes.byref(hp), med.data_ptr(),
+                   *(v.data_ptr() for v in (*ins, cts)), n, d_in.data_ptr(), d_med.data_ptr())
+        return d_in, d_med
+
+    res = {"build_s": build_s, "flags": " ".join(cuda_build.NVCC_FLAGS_FMA), "registers": registers, "lanes": n}
+    for label, plain_build, fma_build, reps in (
+        ("K5", lambda: vm.raymarch(vol_spec, *lanes), k5_with_fma, 3),
+        ("K7", lambda: va.vol_march_bwd(vol_spec, med, *lanes, cts), k7_with_fma, 1),
+    ):
+        fma_build()  # first launch
+        ms_a, ref = time_cuda(plain_build, reps)
+        ms_b, got = time_cuda(fma_build, reps)
+        ms_c, _ = time_cuda(fma_build, reps)
+        ms_d, _ = time_cuda(plain_build, reps)
+        rows_ref, rows_got = ref[0], got[0]
+        differ = (rows_ref != rows_got).any(dim=1)
+        if label == "K5":
+            differ = differ | (ref[1] != got[1])
+        res[label] = {
+            "ms_fmad_false": [ms_a, ms_d], "ms_fma": [ms_b, ms_c],
+            "time_ratio_fma": (ms_b + ms_c) / (ms_a + ms_d), "lanes_differ": float(differ.double().mean()),
+            "max_abs_diff": float((rows_got - rows_ref).abs().max()),
+            "finite": all(bool(torch.isfinite(v).all()) for v in got if v.is_floating_point()),
+        }
+    res["ok"] = res["K5"]["finite"] and res["K7"]["finite"]
+    return res
+
+
 def probe_loss(color):
     """scripts/grad_scale_probe.py --vol's loss: mean(log1p(max(c, 0))) over
     the XYZ channels."""
@@ -1654,8 +1903,16 @@ def vol_fit_phase():
     from gr_raytracer_tpu_torch.ops import geodesic_march as gm
     from gr_raytracer_tpu_torch.ops import volumetric_adjoint as va
     from gr_raytracer_tpu_torch.ops import volumetric_march as vm
+    from gr_raytracer_tpu_torch.rendering import fast_path
 
     scene, spec, x, p = vol_grad_scene(VOL_TOML, VOL_FIT_SIZE, VOL_CAMERA_KW)
+    # The warp efficiency of one thread per lane on the frame's lanes, in
+    # their sorted order (the samples K5 marches for the disc's own medium).
+    with torch.no_grad():
+        g = fast_path.trace_geometric_fast(scene, x, p, spec)
+        _, lanes = fast_path.volumetric_lanes(scene.objects[0], g.ev_kind, g.ev_data, g.observer_energy, g.p_t,
+                                              g.p_phi)
+        fit_efficiency = warp_efficiency(vm.raymarch(spec.vol_spec, *lanes)[1])
     gm.launches = vm.raw_launches = va.launches = 0
     vm.raw_launch_timer, va.launch_timer = [], []
     loss, grads, grad_s = vol_value_and_grad(scene, spec, x, p)
@@ -1713,6 +1970,7 @@ def vol_fit_phase():
         "loss_first": losses[0], "loss_last": losses[-1], "launches": launches,
         "s_per_step": mean("s"), "k6_ms_per_step": mean("k6_ms"), "k7_ms_per_step": mean("k7_ms"),
         "step_breakdown_s": split, "device_busy_share": busy, "value_and_grad": vg,
+        "k5_warp_efficiency": fit_efficiency, "vol_lanes": int(lanes[0].shape[0]),
     }
     if not all(math.isfinite(g) for r in rows for g in r["grads"].values()):
         fail(f"a volumetric fit gradient is not finite: {rows}")
@@ -2190,11 +2448,14 @@ def main():
     t0 = time.perf_counter()
     cuda_build.build_all()
     print(f"build {time.perf_counter() - t0:.1f}s")
+    registers = {}
     for src, (secs, log) in cuda_build.BUILD_LOG.items():
         print(f"  {src}: nvcc {secs:.1f}s")
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 print("   ", line.strip())
+        registers[src] = ptxas_summary(log)
+    print(json.dumps({"registers": registers}), flush=True)
 
     phase("3. K1 against its plain version")
     flops_per_step = count_step_flops()
@@ -2382,17 +2643,21 @@ def main():
     phase("15. volumetric main path: CLI render of kerr-volumetric-streaky")
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, "render-volumetric.png")
-        out, total_s, ran = cli_render(VOL_TOML, VOL_FRAME, CAMERA, png,
-                                       (("K1", gm, "launches"), ("K5", vm, "launches")))
-        vol_main = vol_frame_summary(out, png, VOL_FRAME, total_s, ran, "kerr-volumetric-streaky", vol_ops)
+        with RaymarchSamples() as marched:
+            out, total_s, ran = cli_render(VOL_TOML, VOL_FRAME, CAMERA, png,
+                                           (("K1", gm, "launches"), ("K5", vm, "launches")))
+        vol_main = vol_frame_summary(out, png, VOL_FRAME, total_s, ran, "kerr-volumetric-streaky", vol_ops,
+                                     marched.efficiency())
     print(json.dumps(vol_main), flush=True)
 
     phase("16. BL volumetric path: CLI render of kerr-bl-volumetric-streaky")
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, "render-bl-volumetric.png")
-        out, total_s, ran = cli_render(BL_VOL_TOML, BL_VOL_FRAME, BL_CAMERA, png,
-                                       (("K3", gm, "bl_launches"), ("K5", vm, "launches")))
-        bl_vol = vol_frame_summary(out, png, BL_VOL_FRAME, total_s, ran, "kerr-bl-volumetric-streaky", vol_ops)
+        with RaymarchSamples() as marched:
+            out, total_s, ran = cli_render(BL_VOL_TOML, BL_VOL_FRAME, BL_CAMERA, png,
+                                           (("K3", gm, "bl_launches"), ("K5", vm, "launches")))
+        bl_vol = vol_frame_summary(out, png, BL_VOL_FRAME, total_s, ran, "kerr-bl-volumetric-streaky", vol_ops,
+                                   marched.efficiency())
     print(json.dumps(bl_vol), flush=True)
 
     phase("17. K6 against its plain version")
@@ -2416,6 +2681,12 @@ def main():
         if not r["ok"]:
             fail(f"K7 disagrees with its plain version: {r}")
 
+    phase("18b. K7's medium sums at the full budget against central differences of K6")
+    k7_fd = k7_fd_check()
+    print(json.dumps(k7_fd), flush=True)
+    if not k7_fd["ok"]:
+        fail(f"K7's medium sums disagree with central differences of K6: {k7_fd}")
+
     phase("19. volumetric gradient path: the 256² medium fit")
     vol_fit = vol_fit_phase()
     print(json.dumps(vol_fit), flush=True)
@@ -2438,7 +2709,13 @@ def main():
     sphere_sweeps, sphere_fit = sphere_gradient_phases()
     resumed = resume_phase()
 
-    phase("31. kernels")
+    phase("31. the cost of -fmad=false: K5 and K7 built with FMA contraction")
+    fma_cost = fma_cost_phase()
+    print(json.dumps(fma_cost), flush=True)
+    if not fma_cost["ok"]:
+        fail(f"the FMA build's outputs are not finite: {fma_cost}")
+
+    phase("32. kernels")
     prod = variants[(torch.float32, False)]
     sweep = sweeps[torch.float32]
     bl_prod = bl_variants[(torch.float32, False)]
@@ -2541,6 +2818,13 @@ def main():
         "bound_ms": raymarch["bound_ms"],
         "bound_by": raymarch["bound_by"],
         "library_ms": None,
+        "ms_per_frame": vol_main["k5_ms"],
+        "warp_efficiency": {"chunk": raymarch["warp_efficiency"],
+                            "frame_500": vol_main["k5_warp_efficiency"]["frame"],
+                            "bl_256_first_launch": bl_vol["k5_warp_efficiency"]["first_launch"],
+                            "fit_256": vol_fit["k5_warp_efficiency"]},
+        "registers": registers.get("vol_raymarch.cu"),
+        "fma": fma_cost["K5"],
     }, {
         "name": "vol_raymarch_raw",
         "route": "cuda",
@@ -2573,6 +2857,11 @@ def main():
         "bound_ms": vol_sweeps[torch.float32]["bound_ms"],
         "bound_by": vol_sweeps[torch.float32]["bound_by"],
         "library_ms": None,
+        "ms_f64": vol_sweeps[torch.float64]["kernel_ms"],
+        "ms_per_fit_step": vol_fit["k7_ms_per_step"],
+        "full_budget_fd_rel_err": k7_fd["rel_err"],
+        "registers": registers.get("vol_adjoint.cu"),
+        "fma": fma_cost["K7"],
     }]
     print(f"wall {time.perf_counter() - t_all:.1f}s")
     print(card)

@@ -15,29 +15,45 @@
 // next_k and sample_optics, the same transparency product; the exit step
 // decides every suffix sum), and at each sample pushes the cotangents of
 // (ρ, e_x, e_y, e_z) through the optics:
-//   * along px, py, pz by three forward-mode dual evaluations of
-//     sample_optics (ks::Dual of kerr_ks_common.cuh); the first one's value
-//     part is the sample itself;
+//   * along px, py, pz by the partials of the sample's one jet evaluation
+//     of sample_optics (below);
 //   * along the directions that never reach the noise in closed form:
 //     density_multiplier and noise_offset (ρ = (max(n + off, 0)·dm)·
 //     envelopes; the gradient passes at n + off = 0, as torch's clamp
-//     passes it), brightness_ref (e = (T/br)⁴·l, one dual in br) and
-//     obs_e, p_t, p_phi (through redshift = obs_e/(u_t p_t + u_φ p_φ): one
-//     dual evaluation of the texture in the redshift);
+//     passes it), brightness_ref (e = (T/br)⁴·l: ∂e/∂br = −4e/br) and
+//     obs_e, p_t, p_phi (through redshift = obs_e/(u_t p_t + u_φ p_φ) and
+//     the texture's partial along the redshift);
 // then adds the σ = σ_a + σ_s structure terms: dL/dσ += −τ_i (G_i + 2 cw_i
 // + ct_T T_f), dL/dσ_s += (ct_A·e_i) w_i/σ_s.
 //
-// One thread per lane. A lane's loop ends when the lane is done, so a dead
-// lane is never evaluated (the TPU kernel evaluates its dead lanes at a
-// mid-disc position with zero cotangents; the plain version does too).
-// Per-lane medium partials go to an [n, 5] buffer that the caller sums: no
-// atomics, so the sums are deterministic.
-//
 // What bounds it on the card: operations, as K6 (inputs 11 + 8 a lane,
-// outputs 14), at about four times K6's work a sample: three dual
-// evaluations of the optics and the closed forms. Built with -fmad=false
-// (ops/cuda_build.py) like K6, so the replayed transparency and with it the
-// saturation step are K6's bit for bit.
+// outputs 14); the yardstick is the plain sample's forward and VJP, 3,276
+// float and 972 integer operations (chip_smoke.py count_vol_bwd_ops), over
+// the samples K6 marched. The design does the sample's work once:
+//   * one evaluation of the optics a sample, in Jet<T, 3> along (px, py,
+//     pz) (csrc/vol_common.cuh). Its value part is K6's arithmetic in K6's
+//     op order, so the replayed transparency, saturation step and hole
+//     jump are K6's bit for bit; its partials are ∂(ρ, e_x, e_y, e_z)/∂p,
+//     contracted here with the sample's cotangents;
+//   * through the noise, the closed-form gradient of perlin3: each corner
+//     hash and fade is computed once per corner, octave and sample, and
+//     the octave loop carries six running sums (the gradient in noise
+//     coordinates). The temperature and the texture are evaluated in jets
+//     of their own inputs (r; temperature and redshift), which also gives
+//     the redshift partials the closed forms above read;
+//   * one thread per lane, at most 128 registers a thread in float32
+//     (__launch_bounds__ with 4 blocks an SM: 16 resident warps, no
+//     spills). The render path sorts the lanes by march length
+//     (fast_path.volumetric_lanes), so a warp's lanes end close together
+//     (chip_smoke.py measures the warp efficiency: 0.96 on the 500²
+//     frame's lanes); a persistent-lane queue measured slower in float32
+//     (PERF.md).
+// The outputs stay per lane: the [n, 5] medium partials are summed by the
+// caller, with no atomics on results, so the sums are deterministic. A
+// lane's loop ends when the lane is done, so a dead lane is never
+// evaluated (the TPU kernel evaluates its dead lanes at a mid-disc
+// position with zero cotangents; the plain version does too). Built
+// with -fmad=false (ops/cuda_build.py) like K6.
 
 #include "vol_common.cuh"
 
@@ -48,22 +64,19 @@ using namespace vol;
 constexpr int kCt = 8;   // ct_acc xyz, ct_T, ct_Ws, ct_Wt, s_tot, T_f
 constexpr int kDin = 9;  // d_ro xyz, d_rd xyz, d_obs_e, d_p_t, d_p_phi
 
-// The optics with the tangent of the sample position along axis `dir`.
+// Blocks an SM must hold at once: 4 in float32 (at most 128 registers a
+// thread), any number in float64.
 template <typename T>
-__device__ __forceinline__ Optics<Dual<T>> optics_along(const Params<T>& P, const Medium<T>& M, int dir, T px,
-                                                        T py, T pz, T obs_e, T p_t, T p_phi) {
-  return sample_optics(P, M, Dual<T>(px, dir == 0 ? T(1) : T(0)), Dual<T>(py, dir == 1 ? T(1) : T(0)),
-                       Dual<T>(pz, dir == 2 ? T(1) : T(0)), obs_e, p_t, p_phi);
-}
+constexpr int kMinBlocks = sizeof(T) == 4 ? 4 : 1;
 
-// Σ cotangent · tangent over (ρ, e_x, e_y, e_z).
+// Σ cotangent · ∂/∂p_i over (ρ, e_x, e_y, e_z).
 template <typename T>
-__device__ __forceinline__ T contract(const Optics<Dual<T>>& o, T d_rho, T d_ex, T d_ey, T d_ez) {
-  return d_rho * o.density.d + d_ex * o.ex.d + d_ey * o.ey.d + d_ez * o.ez.d;
+__device__ __forceinline__ T contract(const Optics<Jet<T, 3>>& o, int i, T d_rho, T d_ex, T d_ey, T d_ez) {
+  return d_rho * o.density.d[i] + d_ex * o.ex.d[i] + d_ey * o.ey.d[i] + d_ez * o.ez.d[i];
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
 vol_adjoint_kernel(const __grid_constant__ Params<T> P, const T* __restrict__ med, const T* __restrict__ ro,
                    const T* __restrict__ rd, const T* __restrict__ obs_e_in, const T* __restrict__ p_t_in,
                    const T* __restrict__ p_phi_in, const T* __restrict__ exit_d_in,
@@ -97,7 +110,8 @@ vol_adjoint_kernel(const __grid_constant__ Params<T> P, const T* __restrict__ me
     const T px = rox + rdx * d_o;
     const T py = roy + rdy * d_o;
     const T pz = roz + rdz * d_o;
-    const Optics<Dual<T>> o = optics_along(P, M, 0, px, py, pz, obs_e, p_t, p_phi);
+    using J3 = Jet<T, 3>;
+    const Optics<J3> o = sample_optics(P, M, J3::var(px, 0), J3::var(py, 1), J3::var(pz, 2), obs_e, p_t, p_phi);
 
     // The replay: K6's attenuation, in its op order.
     const T rho = o.density.v;
@@ -122,9 +136,9 @@ vol_adjoint_kernel(const __grid_constant__ Params<T> P, const T* __restrict__ me
     const T d_ex = ct_ax * w, d_ey = ct_ay * w, d_ez = ct_az * w;
 
     // Along the position.
-    const T g_px = contract(o, d_rho, d_ex, d_ey, d_ez);
-    const T g_py = contract(optics_along(P, M, 1, px, py, pz, obs_e, p_t, p_phi), d_rho, d_ex, d_ey, d_ez);
-    const T g_pz = contract(optics_along(P, M, 2, px, py, pz, obs_e, p_t, p_phi), d_rho, d_ex, d_ey, d_ez);
+    const T g_px = contract(o, 0, d_rho, d_ex, d_ey, d_ez);
+    const T g_py = contract(o, 1, d_rho, d_ex, d_ey, d_ez);
+    const T g_pz = contract(o, 2, d_rho, d_ex, d_ey, d_ez);
 
     // density_multiplier and noise_offset.
     if (o.inside) {
@@ -133,15 +147,14 @@ vol_adjoint_kernel(const __grid_constant__ Params<T> P, const T* __restrict__ me
       if (o.n_off.v >= T(0)) g_off = g_off + d_rho * (dm * env);
     }
     // brightness_ref: e = (T/br)⁴·l.
-    const Dual<T> tr = Dual<T>(o.temp.v) / Dual<T>(br, T(1));
-    const Dual<T> tr2 = tr * tr;
-    const Dual<T> inten = tr2 * tr2;
-    g_br = g_br + (d_ex * o.lx.v + d_ey * o.ly.v + d_ez * o.lz.v) * inten.d;
-    // obs_e, p_t, p_phi through the redshift.
+    const Jet<T, 1> tr = Jet<T, 1>(o.temp.v) / Jet<T, 1>::var(br, 0);
+    const Jet<T, 1> tr2 = tr * tr;
+    const Jet<T, 1> inten = tr2 * tr2;
+    g_br = g_br + (d_ex * o.lx.v + d_ey * o.ly.v + d_ez * o.lz.v) * inten.d[0];
+    // obs_e, p_t, p_phi through the redshift (the texture's partial along
+    // it at a fixed temperature, from the sample's evaluation).
     if (o.emit_ok) {
-      Dual<T> lx, ly, lz, la;
-      texture_color(P, o.u_uv.v, o.v_uv.v, Dual<T>(o.temp.v), Dual<T>(o.redshift.v, T(1)), lx, ly, lz, la);
-      const T ct_z = o.intensity.v * (d_ex * lx.d + d_ey * ly.d + d_ez * lz.d);
+      const T ct_z = o.intensity.v * (d_ex * o.lx_z + d_ey * o.ly_z + d_ez * o.lz_z);
       const T ct_e = -(ct_z * o.redshift.v) / o.energy.v;
       d_obs = d_obs + ct_z / o.energy.v;
       d_pt = d_pt + ct_e * o.u_t.v;

@@ -1,27 +1,37 @@
 // Device code shared by the volumetric raymarch (vol_raymarch.cu: K5, and
 // K6, its raw-output form with the medium read at run time) and its
 // backward (vol_adjoint.cu, K7): the parameter struct, the hash-Perlin
-// noise, the optics of one sample and the march bounds.
+// noise and its closed-form gradient, the optics of one sample and the
+// march bounds.
 //
 // The sample optics are templated on T, the march type (float or double),
-// and on S, the type of the sample position: T in the marches, ks::Dual<T>
-// (kerr_ks_common.cuh: a value and one forward-mode tangent) in K7, which
-// takes the derivatives along px, py and pz from three dual evaluations.
-// The value part of a Dual computes exactly the arithmetic of T, so K7's
-// replay of the march sees K6's samples bit for bit. Through the noise the
-// lattice index (floor) and the hash act on the value and carry no
-// tangent. Every kernel is built with -fmad=false (ops/cuda_build.py).
+// and on S, the type of the sample position: T in the marches, Jet<T, 3>
+// (a value and its three partials along px, py, pz) in K7, which takes the
+// position derivatives of the sample from the same single evaluation. The
+// value part of a Jet computes exactly the arithmetic of T, so K7's replay
+// of the march sees K6's samples bit for bit. Through the noise a jet
+// takes the closed-form gradient of perlin3 (perlin3_grad: the value in
+// perlin3's op order, the partials from the fade's derivative and the
+// corners' gradient vectors), summed over the octaves in noise coordinates
+// and chained to the position once; the temperature (a function of r) and
+// the texture (of the temperature and the redshift) are evaluated in jets
+// of their own one and two inputs and chained. The lattice index (floor)
+// and the hash act on the value and carry no partial. Every kernel is
+// built with -fmad=false (ops/cuda_build.py).
 //
 // The plain torch versions of these functions are in
 // ops/volumetric_march.py (_march_bounds, _density, _killing_coefficients,
 // _temperature, _texture_color, _sample_optics, _next_k), which set the
-// order of every operation here.
+// order of every operation here; ops/noise.py holds perlin3_grad's plain
+// twin (perlin3_lanes_grad).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "kerr_ks_common.cuh"
 
@@ -47,7 +57,6 @@ struct HostParams {
 
 namespace vol {
 
-using ks::Dual;
 using ks::nmax;
 using ks::nmin;
 using ks::sqrt_;
@@ -122,7 +131,7 @@ inline Params<T> to_params(const HostParams* hp) {
 }
 
 // ---------------------------------------------------------------------------
-// Math on T and on Dual<T>
+// Math on T, and jets: a value and N forward-mode partials
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float exp_(float x) { return expf(x); }
@@ -137,48 +146,190 @@ __device__ __forceinline__ float abs_(float x) { return fabsf(x); }
 __device__ __forceinline__ double abs_(double x) { return fabs(x); }
 
 template <typename T>
-__device__ __forceinline__ Dual<T> exp_(Dual<T> x) {
-  const T e = exp_(x.v);
-  return Dual<T>(e, e * x.d);
-}
-template <typename T>
-__device__ __forceinline__ Dual<T> log_(Dual<T> x) {
-  return Dual<T>(log_(x.v), x.d / x.v);
-}
-// d|x| = sign(x)·dx, 0 at 0 (the derivative torch and JAX take).
-template <typename T>
-__device__ __forceinline__ Dual<T> abs_(Dual<T> x) {
-  return Dual<T>(abs_(x.v), x.v > T(0) ? x.d : (x.v < T(0) ? -x.d : T(0)));
+__device__ __forceinline__ T clip(T x, T lo, T hi) { return nmin(nmax(x, lo), hi); }
+
+// v + Σ d_i·ε_i with ε_i ε_j = 0. Every operation computes its value part
+// exactly as the T expression, and its partials by the chain rule.
+template <typename T, int N>
+struct Jet {
+  T v;
+  T d[N];
+  __device__ __forceinline__ Jet() : v(T(0)) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) d[i] = T(0);
+  }
+  __device__ __forceinline__ Jet(T v_) : v(v_) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) d[i] = T(0);
+  }
+  // The input `i` of the jet's N: value v, partial 1 along itself.
+  __device__ __forceinline__ static Jet var(T v_, int i) {
+    Jet x(v_);
+    x.d[i] = T(1);
+    return x;
+  }
+};
+
+template <typename S>
+struct IsJet : std::false_type {};
+template <typename T, int N>
+struct IsJet<Jet<T, N>> : std::true_type {};
+
+// The value type of S (T itself, or a jet's T).
+template <typename S>
+struct ValueOf {
+  using type = S;
+};
+template <typename T, int N>
+struct ValueOf<Jet<T, N>> {
+  using type = T;
+};
+
+template <typename T, int N>
+__device__ __forceinline__ T value(const Jet<T, N>& x) { return x.v; }
+
+// x with every partial scaled by f: the jet of g(x) from g's value gv and
+// its derivative f.
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> scaled(T gv, T f, const Jet<T, N>& x) {
+  Jet<T, N> r(gv);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = f * x.d[i];
+  return r;
 }
 
-// A Dual with a constant of its value type: the constant has no tangent,
-// and the value part rounds exactly as the T expression does.
-template <typename T>
-__device__ __forceinline__ Dual<T> operator+(Dual<T> x, T y) { return Dual<T>(x.v + y, x.d); }
-template <typename T>
-__device__ __forceinline__ Dual<T> operator+(T x, Dual<T> y) { return Dual<T>(x + y.v, y.d); }
-template <typename T>
-__device__ __forceinline__ Dual<T> operator-(Dual<T> x, T y) { return Dual<T>(x.v - y, x.d); }
-template <typename T>
-__device__ __forceinline__ Dual<T> operator-(T x, Dual<T> y) { return Dual<T>(x - y.v, -y.d); }
-template <typename T>
-__device__ __forceinline__ Dual<T> operator*(Dual<T> x, T y) { return Dual<T>(x.v * y, x.d * y); }
-template <typename T>
-__device__ __forceinline__ Dual<T> operator*(T x, Dual<T> y) { return Dual<T>(x * y.v, x * y.d); }
-template <typename T>
-__device__ __forceinline__ Dual<T> operator/(Dual<T> x, T y) { return Dual<T>(x.v / y, x.d / y); }
-template <typename T>
-__device__ __forceinline__ Dual<T> operator/(T x, Dual<T> y) {
-  const T q = x / y.v;
-  return Dual<T>(q, (T(0) - q * y.d) / y.v);
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> operator+(const Jet<T, N>& x, const Jet<T, N>& y) {
+  Jet<T, N> r(x.v + y.v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = x.d[i] + y.d[i];
+  return r;
 }
-template <typename T>
-__device__ __forceinline__ Dual<T> nmax(Dual<T> x, T y) { return nmax(x, Dual<T>(y)); }
-template <typename T>
-__device__ __forceinline__ T clip(T x, T lo, T hi) { return nmin(nmax(x, lo), hi); }
-template <typename T>
-__device__ __forceinline__ Dual<T> clip(Dual<T> x, T lo, T hi) {
-  return nmin(nmax(x, Dual<T>(lo)), Dual<T>(hi));
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> operator-(const Jet<T, N>& x, const Jet<T, N>& y) {
+  Jet<T, N> r(x.v - y.v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = x.d[i] - y.d[i];
+  return r;
+}
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> operator-(const Jet<T, N>& x) {
+  Jet<T, N> r(-x.v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = -x.d[i];
+  return r;
+}
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> operator*(const Jet<T, N>& x, const Jet<T, N>& y) {
+  Jet<T, N> r(x.v * y.v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = x.v * y.d[i] + x.d[i] * y.v;
+  return r;
+}
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> operator/(const Jet<T, N>& x, const Jet<T, N>& y) {
+  const T q = x.v / y.v;
+  Jet<T, N> r(q);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = (x.d[i] - q * y.d[i]) / y.v;
+  return r;
+}
+
+// A jet with a constant of its value type: the constant has no partials,
+// and the value part rounds exactly as the T expression does.
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> operator+(const Jet<T, N>& x, T y) { return scaled(x.v + y, T(1), x); }
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> operator+(T x, const Jet<T, N>& y) { return scaled(x + y.v, T(1), y); }
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> operator-(const Jet<T, N>& x, T y) { return scaled(x.v - y, T(1), x); }
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> operator-(T x, const Jet<T, N>& y) {
+  Jet<T, N> r(x - y.v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = -y.d[i];
+  return r;
+}
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> operator*(const Jet<T, N>& x, T y) { return scaled(x.v * y, y, x); }
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> operator*(T x, const Jet<T, N>& y) { return scaled(x * y.v, x, y); }
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> operator/(const Jet<T, N>& x, T y) {
+  Jet<T, N> r(x.v / y);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = x.d[i] / y;
+  return r;
+}
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> operator/(T x, const Jet<T, N>& y) {
+  const T q = x / y.v;
+  Jet<T, N> r(q);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = (T(0) - q * y.d[i]) / y.v;
+  return r;
+}
+
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> exp_(const Jet<T, N>& x) {
+  const T e = exp_(x.v);
+  return scaled(e, e, x);
+}
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> log_(const Jet<T, N>& x) {
+  Jet<T, N> r(log_(x.v));
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = x.d[i] / x.v;
+  return r;
+}
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> sqrt_(const Jet<T, N>& x) {
+  const T s = sqrt_(x.v);
+  const T two_s = T(2) * s;
+  Jet<T, N> r(s);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = x.d[i] / two_s;
+  return r;
+}
+// d|x| = sign(x)·dx, 0 at 0 (the derivative torch and JAX take).
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> abs_(const Jet<T, N>& x) {
+  return scaled(abs_(x.v), x.v > T(0) ? T(1) : (x.v < T(0) ? T(-1) : T(0)), x);
+}
+// NaN-propagating max / min as ks::nmax: a tie splits the partials half and
+// half (ties are exact equalities and never met on a real lane).
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> nmax(const Jet<T, N>& x, const Jet<T, N>& y) {
+  if (x.v != x.v || x.v > y.v) return x;
+  if (y.v != y.v || y.v > x.v) return y;
+  Jet<T, N> r(x.v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = T(0.5) * (x.d[i] + y.d[i]);
+  return r;
+}
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> nmin(const Jet<T, N>& x, const Jet<T, N>& y) {
+  if (x.v != x.v || x.v < y.v) return x;
+  if (y.v != y.v || y.v < x.v) return y;
+  Jet<T, N> r(x.v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = T(0.5) * (x.d[i] + y.d[i]);
+  return r;
+}
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> nmax(const Jet<T, N>& x, T y) { return nmax(x, Jet<T, N>(y)); }
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> clip(const Jet<T, N>& x, T lo, T hi) {
+  return nmin(nmax(x, Jet<T, N>(lo)), Jet<T, N>(hi));
+}
+
+// The jet of f(a, b) along a's and b's inputs, from f's jet over (a, b).
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> chain(const Jet<T, 2>& f, const Jet<T, N>& a, const Jet<T, N>& b) {
+  Jet<T, N> r(f.v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = f.d[0] * a.d[i] + f.d[1] * b.d[i];
+  return r;
 }
 
 // ---------------------------------------------------------------------------
@@ -197,28 +348,59 @@ __device__ __forceinline__ uint32_t mix(uint32_t h) {
   return h ^ (h >> 16);
 }
 
-template <typename S>
-__device__ __forceinline__ S grad(uint32_t hash, S x, S y, S z) {
+template <typename T>
+__device__ __forceinline__ T grad(uint32_t hash, T x, T y, T z) {
   const uint32_t h = hash & 15u;
-  const S u = h < 8u ? x : y;
-  const S v = h < 4u ? y : ((h == 12u || h == 14u) ? x : z);
+  const T u = h < 8u ? x : y;
+  const T v = h < 4u ? y : ((h == 12u || h == 14u) ? x : z);
   return ((h & 1u) == 0u ? u : -u) + ((h & 2u) == 0u ? v : -v);
 }
 
-template <typename T, typename S>
-__device__ __forceinline__ S fade(S t) {
+// grad's gradient vector: its partials along x, y and z, each 0 or ±1.
+template <typename T>
+__device__ __forceinline__ void grad_vector(uint32_t hash, T& gx, T& gy, T& gz) {
+  const uint32_t h = hash & 15u;
+  const bool u_is_x = h < 8u;
+  const bool v_is_y = h < 4u;
+  const bool v_is_x = !v_is_y && (h == 12u || h == 14u);
+  const T su = (h & 1u) == 0u ? T(1) : T(-1);
+  const T sv = (h & 2u) == 0u ? T(1) : T(-1);
+  gx = (u_is_x ? su : T(0)) + (v_is_x ? sv : T(0));
+  gy = (u_is_x ? T(0) : su) + (v_is_y ? sv : T(0));
+  gz = (v_is_y || v_is_x) ? T(0) : sv;
+}
+
+template <typename T>
+__device__ __forceinline__ T fade(T t) {
   return t * t * t * (t * (t * T(6) - T(15)) + T(10));
 }
 
-template <typename T, typename S>
-__device__ __forceinline__ S perlin3(uint32_t key, S x, S y, S z) {
-  const T xi0 = floor_(value(x)), yi0 = floor_(value(y)), zi0 = floor_(value(z));
-  const S xf = x - xi0, yf = y - yi0, zf = z - zi0;
+// fade'(t) = 30·t²·(t − 1)².
+template <typename T>
+__device__ __forceinline__ T fade_slope(T t) {
+  const T tm = t - T(1);
+  return T(30) * (t * t) * (tm * tm);
+}
+
+template <typename T>
+__device__ __forceinline__ T lerp(T t, T a, T b) {
+  return a + t * (b - a);
+}
+
+// perlin3 at (x, y, z) and its gradient (gx, gy, gz). The value is
+// perlin3's, op for op. The gradient of the trilinear blend of the corner
+// terms x_c = g_c·(p − c) is the same blend of the corners' gradient vectors
+// g_c plus, along each axis, the fade's slope times the blend of the corner
+// differences along that axis.
+template <typename T>
+__device__ __forceinline__ T perlin3_grad(uint32_t key, T x, T y, T z, T& gx, T& gy, T& gz) {
+  const T xi0 = floor_(x), yi0 = floor_(y), zi0 = floor_(z);
+  const T xf = x - xi0, yf = y - yi0, zf = z - zi0;
   // The int32 lattice index, then its two's-complement uint32 value.
   const uint32_t xi = (uint32_t)(int32_t)xi0;
   const uint32_t yi = (uint32_t)(int32_t)yi0;
   const uint32_t zi = (uint32_t)(int32_t)zi0;
-  const S u = fade<T>(xf), v = fade<T>(yf), w = fade<T>(zf);
+  const T u = fade(xf), v = fade(yf), w = fade(zf);
 
   // Corner hashes: (i+1)·A = i·A + A in wrapping uint32; the key is folded
   // into x after the add.
@@ -230,24 +412,100 @@ __device__ __forceinline__ S perlin3(uint32_t key, S x, S y, S z) {
   const uint32_t hz0 = zi * kAZ;
   const uint32_t hz1 = hz0 + kAZ;
   const uint32_t h00 = hx0 ^ hy0, h10 = hx1 ^ hy0, h01 = hx0 ^ hy1, h11 = hx1 ^ hy1;
+  const uint32_t c000 = mix(h00 ^ hz0), c100 = mix(h10 ^ hz0), c010 = mix(h01 ^ hz0), c110 = mix(h11 ^ hz0);
+  const uint32_t c001 = mix(h00 ^ hz1), c101 = mix(h10 ^ hz1), c011 = mix(h01 ^ hz1), c111 = mix(h11 ^ hz1);
 
-  const S xm = xf - T(1), ym = yf - T(1), zm = zf - T(1);
-  const S x000 = grad(mix(h00 ^ hz0), xf, yf, zf);
-  const S x100 = grad(mix(h10 ^ hz0), xm, yf, zf);
-  const S x010 = grad(mix(h01 ^ hz0), xf, ym, zf);
-  const S x110 = grad(mix(h11 ^ hz0), xm, ym, zf);
-  const S x001 = grad(mix(h00 ^ hz1), xf, yf, zm);
-  const S x101 = grad(mix(h10 ^ hz1), xm, yf, zm);
-  const S x011 = grad(mix(h01 ^ hz1), xf, ym, zm);
-  const S x111 = grad(mix(h11 ^ hz1), xm, ym, zm);
+  const T xm = xf - T(1), ym = yf - T(1), zm = zf - T(1);
+  const T x000 = grad(c000, xf, yf, zf);
+  const T x100 = grad(c100, xm, yf, zf);
+  const T x010 = grad(c010, xf, ym, zf);
+  const T x110 = grad(c110, xm, ym, zf);
+  const T x001 = grad(c001, xf, yf, zm);
+  const T x101 = grad(c101, xm, yf, zm);
+  const T x011 = grad(c011, xf, ym, zm);
+  const T x111 = grad(c111, xm, ym, zm);
 
-  const S y00 = x000 + u * (x100 - x000);
-  const S y10 = x010 + u * (x110 - x010);
-  const S y01 = x001 + u * (x101 - x001);
-  const S y11 = x011 + u * (x111 - x011);
-  const S z0 = y00 + v * (y10 - y00);
-  const S z1 = y01 + v * (y11 - y01);
-  return z0 + w * (z1 - z0);
+  const T y00 = x000 + u * (x100 - x000);
+  const T y10 = x010 + u * (x110 - x010);
+  const T y01 = x001 + u * (x101 - x001);
+  const T y11 = x011 + u * (x111 - x011);
+  const T z0 = y00 + v * (y10 - y00);
+  const T z1 = y01 + v * (y11 - y01);
+  const T noise = z0 + w * (z1 - z0);
+
+  T g000[3], g100[3], g010[3], g110[3], g001[3], g101[3], g011[3], g111[3];
+  grad_vector(c000, g000[0], g000[1], g000[2]);
+  grad_vector(c100, g100[0], g100[1], g100[2]);
+  grad_vector(c010, g010[0], g010[1], g010[2]);
+  grad_vector(c110, g110[0], g110[1], g110[2]);
+  grad_vector(c001, g001[0], g001[1], g001[2]);
+  grad_vector(c101, g101[0], g101[1], g101[2]);
+  grad_vector(c011, g011[0], g011[1], g011[2]);
+  grad_vector(c111, g111[0], g111[1], g111[2]);
+  T blend[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    blend[a] = lerp(w, lerp(v, lerp(u, g000[a], g100[a]), lerp(u, g010[a], g110[a])),
+                    lerp(v, lerp(u, g001[a], g101[a]), lerp(u, g011[a], g111[a])));
+  }
+  gx = blend[0] + fade_slope(xf) * lerp(w, lerp(v, x100 - x000, x110 - x010), lerp(v, x101 - x001, x111 - x011));
+  gy = blend[1] + fade_slope(yf) * lerp(w, y10 - y00, y11 - y01);
+  gz = blend[2] + fade_slope(zf) * (z1 - z0);
+  return noise;
+}
+
+template <typename T>
+__device__ __forceinline__ T perlin3(uint32_t key, T x, T y, T z) {
+  T gx, gy, gz;  // dead in a caller that reads only the value
+  return perlin3_grad(key, x, y, z, gx, gy, gz);
+}
+
+// The density's noise at the sample: the fBm octaves at (nx, ny, nz) and
+// the vertical warp term at (r/2, h·ns2, cos φ), in sample_optics's order.
+template <typename T>
+__device__ __forceinline__ T density_noise(const Params<T>& P, T nx, T ny, T nz, T r, T h, T cphi) {
+  T n = T(0);
+  T freq = T(4);
+#pragma unroll
+  for (int oc = 0; oc < kMaxOctaves; ++oc) {
+    if (oc < P.octaves) {
+      n = n + P.amp[oc] * perlin3(P.key, nx * freq, ny * freq, nz * freq);
+      freq = freq * T(2);
+    }
+  }
+  return n + T(0.5) * perlin3(P.key, r * T(0.5), h * P.ns2, cphi);
+}
+
+// The same for jets: the value in the same op order; the gradient summed
+// over the octaves in noise coordinates (∂/∂(nx, ny, nz), each octave's
+// weighted by amp·freq) and the warp term's ∂/∂(r/2, h·ns2, cos φ), then
+// chained to the jet's inputs once.
+template <typename T, int N>
+__device__ __forceinline__ Jet<T, N> density_noise(const Params<T>& P, const Jet<T, N>& nx, const Jet<T, N>& ny,
+                                                   const Jet<T, N>& nz, const Jet<T, N>& r, const Jet<T, N>& h,
+                                                   const Jet<T, N>& cphi) {
+  T n = T(0), gx = T(0), gy = T(0), gz = T(0);
+  T freq = T(4);
+#pragma unroll
+  for (int oc = 0; oc < kMaxOctaves; ++oc) {
+    if (oc < P.octaves) {
+      T ox, oy, oz;
+      n = n + P.amp[oc] * perlin3_grad(P.key, nx.v * freq, ny.v * freq, nz.v * freq, ox, oy, oz);
+      const T weight = P.amp[oc] * freq;
+      gx = gx + weight * ox;
+      gy = gy + weight * oy;
+      gz = gz + weight * oz;
+      freq = freq * T(2);
+    }
+  }
+  T wx, wy, wz;
+  Jet<T, N> out(n + T(0.5) * perlin3_grad(P.key, r.v * T(0.5), h.v * P.ns2, cphi.v, wx, wy, wz));
+  const T wr = T(0.25) * wx, wh = T(0.5) * P.ns2 * wy, wc = T(0.5) * wz;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    out.d[i] = gx * nx.d[i] + gy * ny.d[i] + gz * nz.d[i] + wr * r.d[i] + wh * h.d[i] + wc * cphi.d[i];
+  }
+  return out;
 }
 
 // ---------------------------------------------------------------------------
@@ -272,6 +530,8 @@ struct Optics {
   bool inside;
   S n_off, radial_base, vertical, boundary;
   S temp, redshift, u_t, u_phi, energy, u_uv, v_uv, lx, ly, lz, intensity;
+  // For a jet S only: ∂(lx, ly, lz)/∂redshift at a fixed temperature.
+  typename ValueOf<S>::type lx_z, ly_z, lz_z;
 };
 
 // Clenshaw over the temperature fit.
@@ -364,16 +624,7 @@ __device__ __forceinline__ Optics<S> sample_optics(const Params<T>& P, const Med
   const S cphi = x_loc * inv_r;
   const S sphi = y_loc * inv_r;
   const S nx = r * P.ns0, ny = cphi * P.ns1, nz = sphi * P.ns1;
-  S n = S(T(0));
-  T freq = T(4);
-#pragma unroll
-  for (int oc = 0; oc < kMaxOctaves; ++oc) {
-    if (oc < P.octaves) {
-      n = n + P.amp[oc] * perlin3<T>(P.key, nx * freq, ny * freq, nz * freq);
-      freq = freq * T(2);
-    }
-  }
-  n = n + T(0.5) * perlin3<T>(P.key, r * T(0.5), h * P.ns2, cphi);
+  S n = density_noise(P, nx, ny, nz, r, h, cphi);
   o.n_off = n + M.off;
   n = nmax(o.n_off, T(0)) * M.dm;
   o.radial_base = radial_base;
@@ -400,11 +651,31 @@ __device__ __forceinline__ Optics<S> sample_optics(const Params<T>& P, const Med
   o.emit_ok = emitting && orbit_ok && (abs_(value(o.energy)) > T(0));
   o.redshift = o.emit_ok ? obs_e / o.energy : S(T(1));
 
-  o.temp = temperature(P, r);
+  if constexpr (IsJet<S>::value) {
+    // A function of r alone: its own one-input jet, chained.
+    const Jet<T, 1> temp = temperature(P, Jet<T, 1>::var(r.v, 0));
+    o.temp = scaled(temp.v, temp.d[0], r);
+  } else {
+    o.temp = temperature(P, r);
+  }
   const S r_norm = (r - P.inner) / P.width;
   o.u_uv = T(0.5) + T(0.5) * r_norm * cphi;
   o.v_uv = T(0.5) + T(0.5) * r_norm * sphi;
-  texture_color(P, value(o.u_uv), value(o.v_uv), o.temp, o.redshift, o.lx, o.ly, o.lz, o.lalpha);
+  if constexpr (IsJet<S>::value) {
+    // A function of (temperature, redshift): its own two-input jet, chained.
+    using J2 = Jet<T, 2>;
+    J2 lx, ly, lz, lalpha;
+    texture_color(P, o.u_uv.v, o.v_uv.v, J2::var(o.temp.v, 0), J2::var(o.redshift.v, 1), lx, ly, lz, lalpha);
+    o.lx = chain(lx, o.temp, o.redshift);
+    o.ly = chain(ly, o.temp, o.redshift);
+    o.lz = chain(lz, o.temp, o.redshift);
+    o.lalpha = S(lalpha.v);
+    o.lx_z = lx.d[1];
+    o.ly_z = ly.d[1];
+    o.lz_z = lz.d[1];
+  } else {
+    texture_color(P, o.u_uv, o.v_uv, o.temp, o.redshift, o.lx, o.ly, o.lz, o.lalpha);
+  }
   const S tr = o.temp / M.br;
   const S tr2 = tr * tr;
   o.intensity = tr2 * tr2;

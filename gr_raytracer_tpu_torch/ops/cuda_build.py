@@ -4,8 +4,13 @@ Each source under csrc/ is compiled by nvcc into a shared library with a
 plain C interface (no PyTorch headers: seconds instead of minutes) and
 loaded with ctypes. Libraries are cached in build/torch_kernels/ under a
 hash of the source, every shared header (csrc/*.cuh) and the flags, so a
-changed source or header rebuilds and an unchanged one loads at once. `build_all` starts one nvcc per source, all at
-the same time.
+changed source or header rebuilds and an unchanged one loads at once.
+`build_all` starts one nvcc per source, all at the same time.
+
+Every path of the port loads the libraries built with NVCC_FLAGS.
+`load(source, flags)` with another flag set (NVCC_FLAGS_FMA) builds that
+source alone into a subdirectory of its own, for measurements only
+(chip_smoke.py's cost of -fmad=false).
 """
 
 from __future__ import annotations
@@ -29,6 +34,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# NVCC_FLAGS with FMA contraction: a measurement build, not bit-identical to
+# the plain versions.
+NVCC_FLAGS_FMA = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
 SOURCES = (
     "kerr_rk4_march.cu", "kerr_ks_adjoint.cu", "kerr_bl_march.cu", "kerr_bl_adjoint.cu",
     "vol_raymarch.cu", "vol_adjoint.cu",
@@ -36,7 +44,9 @@ SOURCES = (
 
 _lock = threading.Lock()
 _libs: dict = {}
-BUILD_LOG: dict = {}  # source -> (seconds, nvcc's stderr: ptxas register report)
+# source (prefixed "<subdirectory>/" for another flag set) -> (seconds, nvcc's
+# stderr: the ptxas register report)
+BUILD_LOG: dict = {}
 
 
 def _nvcc() -> str:
@@ -50,54 +60,69 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _lib_path(source: str) -> str:
-    h = hashlib.sha256(repr(NVCC_FLAGS).encode())
+def _build_dir(flags) -> str:
+    if flags == NVCC_FLAGS:
+        return BUILD_DIR
+    return os.path.join(BUILD_DIR, "flags-" + hashlib.sha256(repr(flags).encode()).hexdigest()[:8])
+
+
+def _log_key(source: str, flags) -> str:
+    return source if flags == NVCC_FLAGS else f"{os.path.basename(_build_dir(flags))}/{source}"
+
+
+def _lib_path(source: str, flags) -> str:
+    h = hashlib.sha256(repr(flags).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for name in (source, *headers):
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     digest = h.hexdigest()[:16]
     stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+    return os.path.join(_build_dir(flags), f"lib{stem}-{digest}.so")
 
 
-def _start(source: str):
+def _start(source: str, flags):
     """Start nvcc for `source` unless its library exists; returns
     (lib_path, process or None, start time)."""
-    path = _lib_path(source)
+    path = _lib_path(source, flags)
     if os.path.exists(path):
         return path, None, time.perf_counter()
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
+    cmd = [_nvcc(), *flags, "-o", tmp, os.path.join(CSRC_DIR, source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return path, (proc, tmp), time.perf_counter()
 
 
-def _finish(source: str, path: str, job, t0: float):
+def _finish(source: str, flags, path: str, job, t0: float):
     if job is not None:
         proc, tmp = job
         out, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source}:\n{out}\n{err}")
         os.replace(tmp, path)
-        BUILD_LOG[source] = (time.perf_counter() - t0, err)
+        BUILD_LOG[_log_key(source, flags)] = (time.perf_counter() - t0, err)
     return ctypes.CDLL(path)
+
+
+def _build(sources, flags) -> dict:
+    with _lock:
+        todo = [s for s in sources if (s, flags) not in _libs]
+        started = [(s, *_start(s, flags)) for s in todo]
+        for source, path, job, t0 in started:
+            _libs[(source, flags)] = _finish(source, flags, path, job, t0)
+        return {s: _libs[(s, flags)] for s in sources}
 
 
 def build_all() -> dict:
     """Build (or load) every source at once; returns {source: CDLL}."""
-    with _lock:
-        todo = [s for s in SOURCES if s not in _libs]
-        started = [(s, *_start(s)) for s in todo]
-        for source, path, job, t0 in started:
-            _libs[source] = _finish(source, path, job, t0)
-        return dict(_libs)
+    return _build(SOURCES, NVCC_FLAGS)
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The library built from csrc/`source`, building it on first use."""
-    lib = _libs.get(source)
+def load(source: str, flags=NVCC_FLAGS) -> ctypes.CDLL:
+    """The library built from csrc/`source` with `flags`, building it on
+    first use (with the default flags, every source at once)."""
+    lib = _libs.get((source, flags))
     if lib is None:
-        lib = build_all()[source]
+        lib = _build(SOURCES if flags == NVCC_FLAGS else (source,), flags)[source]
     return lib
