@@ -3,17 +3,20 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and the CUDA toolkit. Phases, each of which exits
+Needs one CUDA card and the CUDA toolkit. The phases, each of which exits
 non-zero on failure:
 
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
-     and print each kernel's registers, spill stores and resident warps
-     per SM (ptxas);
+     and print each kernel's registers, spill stores, shared memory and
+     resident warps per SM (ptxas; its report is kept beside each library,
+     so a cached build prints it too);
   3. the march kernel K1 against its plain torch version on the card, on
      65,536 kerr.toml camera rays (the frame's middle CLI chunk) at a
      20,000-step budget, in float32 and float64 with the Kahan update off
-     and on;
+     and on; and each one's critical path (its longest lane, and the
+     kernel's time on the 128 longest lanes alone; as in phases 8, 13, 21
+     and 22);
   4. the main path: the CLI `render` of kerr.toml at 1000×1000, float32,
      adaptive supersampling on, into a temporary directory; the kernel's
      launch count must rise and the frame must show horizon, sky and disc;
@@ -57,19 +60,25 @@ non-zero on failure:
  14. the raymarch K5 against its plain version on the volumetric lanes of
      that K1 chunk, float32 and float64, with the march budget cut to
      VOL_COMPARE_STEPS samples (the plain loop costs milliseconds per
-     sample whatever the lane count); then K5 alone at the scene's full
-     50,000-sample budget, and the warp efficiency E of one thread per
-     lane on those lanes (Σ samples over Σ warps of 32 × the warp's
-     longest lane, in the lanes' sorted order);
+     sample whatever the lane count), with 128 lanes added that cross the
+     disc's inner hole within that budget; a replay of the plain k walk
+     counts the compared lanes that take next_k's hole jump, and some of
+     the added ones must; then K5 alone at the scene's full
+     50,000-sample budget, its batch use on those lanes (Σ nᵢ over
+     Σ 32·⌈nᵢ/32⌉: a warp evaluates a lane's samples 32 at a time) and its
+     critical path: the lanes' sample counts (longest, p99, p50, the share
+     that march) and K5's time on the 128 longest lanes alone and on all
+     but the longest 1 %;
  15. the volumetric main path: the CLI `render` of kerr-volumetric-streaky
      at 500×500 (docs/examples.md), float32, 4×4 AA; K1 and K5 must
      launch, the frame must show horizon and sky and K5 lanes that emit;
      it prints the rays re-traced because they overflowed their 8 event
      slots, and, as a fault, those that overflowed the re-trace's 32 too,
-     and E of each K5 launch and of the frame;
+     and the batch use and longest lane of each K5 launch and the frame's
+     batch use;
  16. the BL volumetric path: the CLI `render` of
-     kerr-bl-volumetric-streaky at 256×256 through K3 and K5 (E of its
-     first launch too);
+     kerr-bl-volumetric-streaky at 256×256 through K3 and K5 (the same K5
+     figures);
  17. the raw-output raymarch K6 against its plain version on phase 14's
      lanes, float32 and float64, at VOL_COMPARE_STEPS samples; its results
      combined (combine_alpha) against K5's XYZA; K6 alone at 50,000;
@@ -81,15 +90,16 @@ non-zero on failure:
      and cotangents (L = Σ ct·(acc, T_f, Ws, Wt), a step of 1e-5 of each
      parameter) over the lanes whose saturation step does not move within
      the step (there Ws and Wt jump; the difference over all lanes is
-     printed beside it): within 1e-5 relative;
+     printed beside it): within 1e-5 relative, with at most 1 % of the
+     marching lanes left out for any parameter;
  19. the volumetric gradient path of scripts/grad_scale_probe.py --vol
      (kerr-volumetric-streaky 256², hero #5's camera, budget 20,000, the
      TOML's 50,000-sample raymarch, float32): one value and gradient of its
      loss over the five medium parameters (finite; K1, K6 and K7 must
      launch), then the first 20 steps of its 60-step density_multiplier and
      absorption fit from (300, 0.6): the loss must fall and both must move
-     toward (500, 0.3); where a step's time goes; E on the frame's
-     volumetric lanes;
+     toward (500, 0.3); where a step's time goes; K5's batch use on the
+     frame's volumetric lanes;
  20. one value and gradient on kerr-bl-volumetric-streaky at 128² through
      K3, K6 and K7: finite and nonzero;
  21. K1 with sphere events against its plain version, float32 and
@@ -239,6 +249,9 @@ VOL_BWD_COMPARE_STEPS = 400
 # of K6, in float64: the step is this fraction of each parameter.
 VOL_FD_STEP = 1e-5
 VOL_FD_BAR = 1e-5  # relative
+# The lanes whose saturation step moves within a parameter's step are left
+# out of its difference; at most this share of the marching lanes may be.
+VOL_FD_EXIT_MOVED_CAP = 0.01
 # The volumetric gradient path: scripts/grad_scale_probe.py --vol (hero #5's
 # camera at 256², budget 20,000, the TOML's 50,000-sample raymarch; the fit
 # of density_multiplier and absorption from 0.6× and 2× their true values,
@@ -338,6 +351,9 @@ BL_RESUME_COMPARE_ATTEMPTS = 2000
 FP32_LANES_PER_SM = 128  # Hopper: FP32 units per SM
 FP64_LANES_PER_SM = 64
 INT32_LANES_PER_SM = 64  # Hopper: INT32 units per SM
+# critical_path: a launch's longest lanes timed alone (one block of 128
+# threads in K1, K3 and K7; 128 warps in K5 and K6).
+TAIL_LANES = 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 
 
@@ -361,19 +377,23 @@ def nvidia_smi(query):
     return out.stdout.strip().splitlines()[0]
 
 
-def resident_warps(registers, threads=128):
-    """Warps an SM holds at `registers` a thread for blocks of `threads`
-    (Hopper: 65,536 registers an SM, allocated 256 a warp at a time; at
-    most 64 warps)."""
+def resident_warps(registers, smem=0, threads=128):
+    """Warps an SM holds at `registers` a thread and `smem` bytes of static
+    shared memory a block, for blocks of `threads` (Hopper: 65,536
+    registers an SM, allocated 256 a warp at a time; 233,472 bytes of shared
+    memory, 1 KB of it reserved a block; at most 64 warps)."""
     per_warp = -(-registers * 32 // 256) * 256
     warps_per_block = threads // 32
     blocks = (65_536 // per_warp) // warps_per_block
+    if smem:
+        blocks = min(blocks, 233_472 // (smem + 1024))
     return min(blocks * warps_per_block, 64)
 
 
 def ptxas_summary(log):
-    """[{kernel, registers, spill_stores, resident_warps}] of each entry
-    function in nvcc's -Xptxas -v report (the kernel's name and type)."""
+    """[{kernel, registers, spill_stores, smem, resident_warps}] of each
+    entry function in nvcc's -Xptxas -v report (the kernel's name and
+    type; smem: its static shared memory in bytes)."""
     import re
 
     rows, name, spill = [], None, 0
@@ -390,8 +410,10 @@ def ptxas_summary(log):
         m = re.search(r"Used (\d+) registers", line)
         if m and name is not None:
             regs = int(m.group(1))
-            rows.append({"kernel": name, "registers": regs, "spill_stores": spill,
-                         "resident_warps": resident_warps(regs)})
+            m = re.search(r"(\d+) bytes smem", line)
+            smem = int(m.group(1)) if m else 0
+            rows.append({"kernel": name, "registers": regs, "spill_stores": spill, "smem": smem,
+                         "resident_warps": resident_warps(regs, smem)})
             name = None
     return rows
 
@@ -554,6 +576,38 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
+def critical_path(launch, lanes_of, counts, reps=3):
+    """How a launch's longest lanes hold it. `counts` are its lanes' samples
+    or steps; `lanes_of(idx)` gathers the inputs of the lanes `idx` (kept in
+    their given order) and `launch(inputs)` runs the kernel on them. Returns
+    the longest lane, the p99 and p50, the share of lanes that run at all,
+    and the kernel's ms on every lane, on the TAIL_LANES longest alone and
+    on all but the longest 1 %."""
+    import torch
+
+    n = counts.long()
+    order = torch.argsort(n, descending=True, stable=True)
+    subsets = {"all": None, "longest": torch.sort(order[:TAIL_LANES]).values,
+               "less_top_1pct": torch.sort(order[max(1, n.numel() // 100):]).values}
+    ms = {}
+    for key, idx in subsets.items():
+        inputs = lanes_of(idx)
+        launch(inputs)
+        torch.cuda.synchronize()
+        ms[key] = time_cuda(lambda: launch(inputs), reps)[0]
+    q = torch.quantile(n.double(), torch.tensor([0.99, 0.5], dtype=torch.float64, device=n.device))
+    return {"longest_lane": int(n.max()), "p99": float(q[0]), "p50": float(q[1]),
+            "share_running": float((n > 0).double().mean()), "ms": ms["all"],
+            f"ms_longest_{TAIL_LANES}": ms["longest"], "ms_less_top_1pct": ms["less_top_1pct"],
+            f"longest_{TAIL_LANES}_share": ms["longest"] / ms["all"]}
+
+
+def gather_lanes(lanes, idx):
+    """The lanes `idx` of a tuple of per-lane tensors, contiguous (all of
+    them for None)."""
+    return lanes if idx is None else tuple(v[idx].contiguous() for v in lanes)
+
+
 def chunk_inputs(dtype, toml=KERR_TOML, size=FRAME, camera=None, first=None, options=None):
     """(scene, spec, y0, freq, solver, inverse) for the middle CLI chunk of
     the size×size frame of `toml` (default: kerr.toml at 1000², the README
@@ -624,6 +678,9 @@ def compare_march(dtype, compensated, flops_per_step, bl=False, attempts=None, t
     full = kernel(*args, **kw)  # first launch: checks the kernel runs
     torch.cuda.synchronize()
     kernel_ms, full = time_cuda(lambda: kernel(*args, **kw), reps=3)
+    # Per-lane inputs follow the three scalars.
+    tail = critical_path(lambda ins: kernel(*args[:3], *ins, **kw), lambda idx: gather_lanes(args[3:], idx),
+                         full[2])
     if attempts is not None:
         kw.update(attempts=attempts, finalize=False)
     got = full if attempts is None else kernel(*args, **kw)
@@ -647,7 +704,7 @@ def compare_march(dtype, compensated, flops_per_step, bl=False, attempts=None, t
         "events": int(count_g.long().sum()), "overflowed": int(ovf_g.sum()),
         "events_by_kind": torch.bincount(kind_g[kind_g >= 0].long()).tolist(),
         "sphere_events": sum(int((kind_g == s.kind).sum()) for s in spec.spheres),
-        "max_steps_taken": int(full[2].max()), "sum_steps": int(full[2].long().sum()),
+        "max_steps_taken": int(full[2].max()), "sum_steps": int(full[2].long().sum()), "critical_path": tail,
         "steps_equal_on_agreeing": float((steps_g == steps_r)[same].double().mean()),
     }
     n = y0.shape[0]
@@ -1405,16 +1462,12 @@ def lane_errors(got, ref):
     return torch.where(scale > 0, diff / scale.clamp(min=1e-300), got.abs().amax(dim=1))
 
 
-def warp_efficiency(samples):
-    """E = Σ n_i / Σ over warps of (32 × the warp's largest n), the warp
-    efficiency of one thread per lane in the lane order the kernel is given
-    (32 consecutive lanes a warp; the last warp padded with empty lanes)."""
-    import torch
-
+def batch_use(samples):
+    """Σ n_i / Σ 32·⌈n_i / 32⌉: the share of the samples K5 and K6 evaluate
+    that their lanes fold (a warp evaluates a lane's samples 32 at a time
+    and drops those past the lane's exit)."""
     n = samples.long()
-    pad = (-n.numel()) % 32
-    warps = torch.cat([n, n.new_zeros(pad)]).view(-1, 32)
-    slots = 32 * int(warps.amax(dim=1).sum())
+    slots = 32 * int(((n + 31) // 32).sum())
     return int(n.sum()) / slots if slots else 1.0
 
 
@@ -1440,37 +1493,97 @@ class RaymarchSamples:
     def __exit__(self, *exc):
         self.module.raymarch = self.inner
 
-    def efficiency(self):
-        """E of the first launch, of each launch, and of the frame (Σ n over
-        Σ warp slots of every launch)."""
-        per_launch = [warp_efficiency(n) for n in self.launches]
-        total = sum(int(n.long().sum()) for n in self.launches)
-        slots = sum(int(n.long().sum()) / e for n, e in zip(self.launches, per_launch) if e > 0)
+    def batch_use(self):
+        """The batch use of the first launch, of each launch, and of the
+        frame (every launch's lanes together), and each launch's lanes and
+        longest lane (its critical path)."""
+        import torch
+
+        per_launch = [batch_use(n) for n in self.launches]
         return {"first_launch": per_launch[0] if per_launch else None,
-                "frame": total / slots if slots else None, "per_launch": per_launch,
-                "lanes": [int(n.numel()) for n in self.launches],
-                "max_samples": max((int(n.max()) for n in self.launches if n.numel()), default=0)}
+                "frame": batch_use(torch.cat(self.launches)) if self.launches else None,
+                "per_launch": per_launch, "lanes": [int(n.numel()) for n in self.launches],
+                "longest_lane_per_launch": [int(n.max()) if n.numel() else 0 for n in self.launches]}
+
+
+def hole_jump_lanes(spec, lanes, counts):
+    """Lanes whose plain walk of `counts` samples crosses the disc's inner
+    hole: their k moves by more than 1 between two samples they evaluate
+    (next_k's hole branch). A replay of the k walk alone (_march_bounds,
+    _next_k), without the optics. Returns a bool [N]."""
+    import types
+
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import volumetric_march as vm
+
+    ro, rd, _, _, _, active, exit_d = lanes
+    c = vm._constants(spec, ro.dtype, ro.device)
+    k, _, _, i_lo, i_hi, k_hole_exit = vm._march_bounds(spec, c, ro, rd, exit_d, active)
+    bounds = types.SimpleNamespace(i_lo=i_lo, i_hi=i_hi, k_hole_exit=k_hole_exit)
+    jumped = torch.zeros_like(active)
+    for j in range(int(counts.max()) - 1):
+        k_next = vm._next_k(spec, bounds, k)
+        jumped |= (k_next > k + 1.0) & (counts > j + 1)
+        k = k_next
+    return jumped
+
+
+def hole_crossing_lanes(spec, lanes, n=128, seed=0):
+    """`n` lanes that take next_k's hole jump and march on within their
+    first VOL_COMPARE_STEPS samples (the budget caps a lane's march at
+    VOL_COMPARE_STEPS·d_s): each lies in the disc's plane, crosses the
+    inner hole on a chord 0.05 to 0.2 long, starts 20 to 800 samples
+    before the hole and has the scene's full march length as exit_d. The
+    main path's lanes rarely take the jump, as their exit_d ends at the
+    inner wall. So close to the inner wall the density's boundary factor
+    is ~0: these lanes hold the walk and the sample counts, the chunk's
+    lanes the fold. obs_e, p_t and p_phi are those of the chunk's `n`
+    longest lanes. Same order as `lanes`."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    ro0 = lanes[0]
+    axis, e1, e2 = (np.asarray(v, dtype=np.float64) for v in (spec.axis, spec.e1, spec.e2))
+    half_chord = 0.5 * rng.uniform(0.05, 0.2, n)
+    impact = np.sqrt(spec.inner * spec.inner - half_chord * half_chord)
+    start = half_chord + spec.step_size * rng.uniform(20.0, 800.0, n)
+    psi = rng.uniform(0.0, 2.0 * np.pi, n)
+    u = np.cos(psi)[:, None] * e1 + np.sin(psi)[:, None] * e2
+    normal = -np.sin(psi)[:, None] * e1 + np.cos(psi)[:, None] * e2
+    h = spec.thickness * rng.uniform(-0.3, 0.3, n)
+    ro = impact[:, None] * normal - start[:, None] * u + h[:, None] * axis
+    as_lane = lambda v: torch.as_tensor(v, dtype=ro0.dtype, device=ro0.device).contiguous()
+    return (as_lane(ro), as_lane(u), lanes[2][-n:].clone(), lanes[3][-n:].clone(), lanes[4][-n:].clone(),
+            torch.ones(n, dtype=torch.bool, device=ro0.device),
+            torch.full((n,), spec.step_size * spec.max_steps, dtype=ro0.dtype, device=ro0.device))
 
 
 def compare_raymarch(dtype, ops):
     """K5 against its plain version on the volumetric lanes of the main
     path's middle chunk (the kerr-volumetric-streaky 500² frame), both with
-    the march budget cut to VOL_COMPARE_STEPS samples; then K5 alone at the
-    scene's full budget. Returns a result dict."""
+    the march budget cut to VOL_COMPARE_STEPS samples, with
+    `hole_crossing_lanes` added, of which some must take next_k's hole
+    jump; then K5 alone at the scene's full budget on the chunk's lanes.
+    Returns a result dict."""
     import torch
 
     from gr_raytracer_tpu_torch.ops import volumetric_march as vm
 
     vol_spec, lanes, _ = vol_chunk_lanes(dtype)
     cut = vol_spec._replace(max_steps=VOL_COMPARE_STEPS)
-    vm.raymarch(cut, *lanes)  # first launch: checks the kernel runs
+    hole = hole_crossing_lanes(vol_spec, lanes)
+    compared = tuple(torch.cat([a, b]) for a, b in zip(lanes, hole))
+    vm.raymarch(cut, *compared)  # first launch: checks the kernel runs
     torch.cuda.synchronize()
-    cut_ms, (got, n_got) = time_cuda(lambda: vm.raymarch(cut, *lanes), reps=3)
+    cut_ms, (got, n_got) = time_cuda(lambda: vm.raymarch(cut, *compared), reps=3)
     t0 = time.perf_counter()
-    ref, n_ref = vm.raymarch_plain(cut, *lanes)
+    ref, n_ref = vm.raymarch_plain(cut, *compared)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     full_ms, (out, n_full) = time_cuda(lambda: vm.raymarch(vol_spec, *lanes), reps=3)
+    tail = critical_path(lambda ins: vm.raymarch(vol_spec, *ins), lambda idx: gather_lanes(lanes, idx), n_full)
 
     n = lanes[0].shape[0]
     samples = int(n_full.long().sum())
@@ -1478,18 +1591,21 @@ def compare_raymarch(dtype, ops):
     tone = lambda c: c / (1.0 + c)
     tone_err = (tone(got) - tone(ref)).abs().amax(dim=1)
     lane_err = lane_errors(got, ref)
+    jumped = hole_jump_lanes(cut, compared, n_ref)
     r = {
         "kernel": "K5", "dtype": str(dtype).replace("torch.", ""), "lanes": n,
         "compare_budget": VOL_COMPARE_STEPS, "full_budget": vol_spec.max_steps,
         "bit_identical": bool(torch.equal(got, ref)) and bool(torch.equal(n_got, n_ref)),
         "samples_equal": float((n_got == n_ref).double().mean()),
-        "compare_samples": int(n_ref.long().sum()), "compare_lanes_marched": int((n_ref > 0).sum()),
+        "compare_samples": int(n_ref.long().sum()), "compare_lanes_marched": int((n_ref[:n] > 0).sum()),
+        "compare_lanes_hole_jump": int(jumped[:n].sum()), "hole_lanes": int(jumped.numel() - n),
+        "hole_lanes_jumped": int(jumped[n:].sum()),
         "kernel_ms_compare_budget": cut_ms, "plain_ms": plain_ms,
         "kernel_ms": full_ms, "samples": samples, "max_samples": int(n_full.max()),
         "lanes_alpha_gt_0": int((out[:, 3] > 0).sum()), "finite": bool(torch.isfinite(out).all()),
         "samples_per_s": samples / (full_ms / 1e3), "bound_ms": bound_ms, "bound_by": bound_by,
         "lane_rel_err_max": float(lane_err.max()), "max_abs_err": float(tone_err.max()),
-        "warp_efficiency": warp_efficiency(n_full),
+        "batch_use": batch_use(n_full), "critical_path": tail,
     }
     if dtype == torch.float64:
         r["lanes_within_tol"] = float((lane_err <= F64_RTOL).double().mean())
@@ -1497,15 +1613,16 @@ def compare_raymarch(dtype, ops):
     else:
         r["lanes_within_tol"] = float((tone_err <= F32_TONE_ATOL).double().mean())
         ok = r["lanes_within_tol"] >= F32_STOP_AGREEMENT
-    r["ok"] = bool(ok and r["finite"] and r["lanes_alpha_gt_0"] > 0 and r["compare_lanes_marched"] > 0)
+    r["ok"] = bool(ok and r["finite"] and r["lanes_alpha_gt_0"] > 0 and r["compare_lanes_marched"] > 0
+                   and r["hole_lanes_jumped"] > 0)
     return r
 
 
-def vol_frame_summary(out, png, size, total_s, ran, what, ops, efficiency):
+def vol_frame_summary(out, png, size, total_s, ran, what, ops, use):
     """The checks and numbers of a volumetric CLI frame: horizon and sky
     rays, emitting K5 lanes, each kernel of `ran` (cli_render's) launched,
-    its ms, K5's share of the frame and the warp efficiency of its
-    launches (RaymarchSamples.efficiency), the rays re-traced because they
+    its ms, K5's share of the frame and the batch use and longest lane of
+    its launches (RaymarchSamples.batch_use), the rays re-traced because they
     overflowed their event slots, and (printed as a fault) those that
     overflow the re-trace's slots too."""
     import torch
@@ -1538,7 +1655,7 @@ def vol_frame_summary(out, png, size, total_s, ran, what, ops, efficiency):
         "k5_launches": k5_launches, "k5_ms": k5_ms,
         "k5_share": k5_ms / 1e3 / total_s, "k5_samples_per_s": samples / max(k5_ms / 1e3, 1e-9),
         "k5_bound_ms": raymarch_bound_ms(samples, pass1.vol_lanes + aa.vol_lanes, ops, torch.float32)[0],
-        "k5_warp_efficiency": efficiency,
+        "k5_batch_use": use,
     })
     for label, (launches, ms) in ran.items():
         if label != "K5":
@@ -1715,7 +1832,9 @@ def k7_fd_check():
     parameter's difference is taken over the lanes whose sample count (K5
     at the same medium: in float64 K5 and K6 march bit-identically) is the
     same at both steps as at the centre, as phase 29 drops the pixels with
-    a texel jump; the difference over every lane is printed beside it."""
+    a texel jump; the difference over every lane is printed beside it. So
+    that this cannot hide a fault, no parameter may leave out more than
+    VOL_FD_EXIT_MOVED_CAP of the marching lanes."""
     import numpy as np
     import torch
 
@@ -1741,9 +1860,11 @@ def k7_fd_check():
     cts = torch.cat([ct, torch.sum(ct[:, :3] * acc, dim=-1)[:, None], t_f[:, None]], dim=1).contiguous()
     _, d_med = va.vol_march_bwd(vol_spec, med, *lanes, cts)
     centre = samples_at(med)
+    marching = int((centre > 0).sum())
     r = {"kernel": "K7", "check": "full-budget medium sums against central differences of K6", "dtype": "float64",
          "lanes": n, "budget": vol_spec.max_steps, "step": VOL_FD_STEP, "bar": VOL_FD_BAR,
          "names": list(vm.MED_NAMES), "k7_sums": [], "k6_central_differences": [], "rel_err": [],
+         "marching_lanes": marching, "lanes_exit_moved_cap": VOL_FD_EXIT_MOVED_CAP * marching,
          "lanes_exit_moved": [], "all_lanes": {"k7_sums": [float(v) for v in d_med.sum(0)],
                                                "k6_central_differences": [], "rel_err": []}}
     for i in range(len(vm.MED_NAMES)):
@@ -1761,7 +1882,8 @@ def k7_fd_check():
         r["lanes_exit_moved"].append(int((~keep).sum()))
         r["all_lanes"]["k6_central_differences"].append(fd_all)
         r["all_lanes"]["rel_err"].append(abs(r["all_lanes"]["k7_sums"][i] - fd_all) / max(abs(fd_all), 1e-300))
-    r["ok"] = all(e <= VOL_FD_BAR for e in r["rel_err"]) and all(np.isfinite(r["k7_sums"]))
+    r["ok"] = (all(e <= VOL_FD_BAR for e in r["rel_err"]) and all(np.isfinite(r["k7_sums"]))
+               and max(r["lanes_exit_moved"]) <= r["lanes_exit_moved_cap"])
     return r
 
 
@@ -1771,6 +1893,42 @@ def _bound_like(fn, lib, name):
     other = getattr(lib, name)
     other.argtypes, other.restype = fn.argtypes, fn.restype
     return other
+
+
+def k5_launcher(fn, vol_spec):
+    """Launch the K5 C entry point `fn` (bound as vm._entry binds it) of
+    another build on lanes (ro, rd, obs_e, p_t, p_phi, active, exit_d):
+    returns (XYZA, samples). Not a path of the port: it counts no launch."""
+    import ctypes
+
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import volumetric_march as vm
+
+    hp = vm._host_params(vol_spec)
+
+    def launch(lanes):
+        ro, rd, obs_e, p_t, p_phi, active, exit_d = lanes
+        n = ro.shape[0]
+        out = torch.empty((n, 4), dtype=ro.dtype, device=ro.device)
+        samples = torch.empty(n, dtype=torch.int32, device=ro.device)
+        vm._launch("vol_raymarch (another build)", fn, None, ro.device, ctypes.byref(hp),
+                   *(v.data_ptr() for v in (ro, rd, obs_e, p_t, p_phi, exit_d, active)), n, out.data_ptr(),
+                   samples.data_ptr())
+        return out, samples
+
+    return launch
+
+
+def time_in_turns(a, b, reps):
+    """Two builds of one kernel in turns (a, b, b, a), `reps` launches each
+    after a first launch of b: ([a ms], [b ms], a's result, b's result)."""
+    b()
+    ms_a, out_a = time_cuda(a, reps)
+    ms_b, out_b = time_cuda(b, reps)
+    ms_c, _ = time_cuda(b, reps)
+    ms_d, _ = time_cuda(a, reps)
+    return [ms_a, ms_d], [ms_b, ms_c], out_a, out_b
 
 
 def fma_cost_phase():
@@ -1798,15 +1956,8 @@ def fma_cost_phase():
     n = lanes[0].shape[0]
     ins = (lanes[0], lanes[1], lanes[2], lanes[3], lanes[4], lanes[6], lanes[5])  # ro, rd, obs_e, p_t, p_phi, exit_d, active
     hp = vm._host_params(vol_spec)
-    k5_fma = _bound_like(vm._entry(dtype), fma["vol_raymarch.cu"], "vol_raymarch_f32")
+    k5_fma = k5_launcher(_bound_like(vm._entry(dtype), fma["vol_raymarch.cu"], "vol_raymarch_f32"), vol_spec)
     k7_fma = _bound_like(va._entry(dtype), fma["vol_adjoint.cu"], "vol_adjoint_f32")
-
-    def k5_with_fma():
-        out = torch.empty((n, 4), dtype=dtype, device="cuda")
-        samples = torch.empty(n, dtype=torch.int32, device="cuda")
-        vm._launch("vol_raymarch (FMA)", k5_fma, None, torch.device("cuda"), ctypes.byref(hp),
-                   *(v.data_ptr() for v in ins), n, out.data_ptr(), samples.data_ptr())
-        return out, samples
 
     ct = torch.as_tensor(np.random.default_rng(0).normal(size=(n, 6)), dtype=dtype, device="cuda")
     acc, t_f, _, _ = vm.raymarch_raw(vol_spec, med, *lanes)
@@ -1821,21 +1972,17 @@ def fma_cost_phase():
 
     res = {"build_s": build_s, "flags": " ".join(cuda_build.NVCC_FLAGS_FMA), "registers": registers, "lanes": n}
     for label, plain_build, fma_build, reps in (
-        ("K5", lambda: vm.raymarch(vol_spec, *lanes), k5_with_fma, 3),
+        ("K5", lambda: vm.raymarch(vol_spec, *lanes), lambda: k5_fma(lanes), 3),
         ("K7", lambda: va.vol_march_bwd(vol_spec, med, *lanes, cts), k7_with_fma, 1),
     ):
-        fma_build()  # first launch
-        ms_a, ref = time_cuda(plain_build, reps)
-        ms_b, got = time_cuda(fma_build, reps)
-        ms_c, _ = time_cuda(fma_build, reps)
-        ms_d, _ = time_cuda(plain_build, reps)
+        ms_default, ms_fma, ref, got = time_in_turns(plain_build, fma_build, reps)
         rows_ref, rows_got = ref[0], got[0]
         differ = (rows_ref != rows_got).any(dim=1)
         if label == "K5":
             differ = differ | (ref[1] != got[1])
         res[label] = {
-            "ms_fmad_false": [ms_a, ms_d], "ms_fma": [ms_b, ms_c],
-            "time_ratio_fma": (ms_b + ms_c) / (ms_a + ms_d), "lanes_differ": float(differ.double().mean()),
+            "ms_fmad_false": ms_default, "ms_fma": ms_fma, "time_ratio_fma": sum(ms_fma) / sum(ms_default),
+            "lanes_differ": float(differ.double().mean()),
             "max_abs_diff": float((rows_got - rows_ref).abs().max()),
             "finite": all(bool(torch.isfinite(v).all()) for v in got if v.is_floating_point()),
         }
@@ -1906,13 +2053,13 @@ def vol_fit_phase():
     from gr_raytracer_tpu_torch.rendering import fast_path
 
     scene, spec, x, p = vol_grad_scene(VOL_TOML, VOL_FIT_SIZE, VOL_CAMERA_KW)
-    # The warp efficiency of one thread per lane on the frame's lanes, in
-    # their sorted order (the samples K5 marches for the disc's own medium).
+    # K5's batch use on the frame's lanes (the samples it marches for the
+    # disc's own medium).
     with torch.no_grad():
         g = fast_path.trace_geometric_fast(scene, x, p, spec)
         _, lanes = fast_path.volumetric_lanes(scene.objects[0], g.ev_kind, g.ev_data, g.observer_energy, g.p_t,
                                               g.p_phi)
-        fit_efficiency = warp_efficiency(vm.raymarch(spec.vol_spec, *lanes)[1])
+        fit_batch_use = batch_use(vm.raymarch(spec.vol_spec, *lanes)[1])
     gm.launches = vm.raw_launches = va.launches = 0
     vm.raw_launch_timer, va.launch_timer = [], []
     loss, grads, grad_s = vol_value_and_grad(scene, spec, x, p)
@@ -1970,7 +2117,7 @@ def vol_fit_phase():
         "loss_first": losses[0], "loss_last": losses[-1], "launches": launches,
         "s_per_step": mean("s"), "k6_ms_per_step": mean("k6_ms"), "k7_ms_per_step": mean("k7_ms"),
         "step_breakdown_s": split, "device_busy_share": busy, "value_and_grad": vg,
-        "k5_warp_efficiency": fit_efficiency, "vol_lanes": int(lanes[0].shape[0]),
+        "k5_batch_use": fit_batch_use, "vol_lanes": int(lanes[0].shape[0]),
     }
     if not all(math.isfinite(g) for r in rows for g in r["grads"].values()):
         fail(f"a volumetric fit gradient is not finite: {rows}")
@@ -2450,7 +2597,7 @@ def main():
     print(f"build {time.perf_counter() - t0:.1f}s")
     registers = {}
     for src, (secs, log) in cuda_build.BUILD_LOG.items():
-        print(f"  {src}: nvcc {secs:.1f}s")
+        print(f"  {src}: " + ("cached" if secs is None else f"nvcc {secs:.1f}s"))
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 print("   ", line.strip())
@@ -2647,7 +2794,7 @@ def main():
             out, total_s, ran = cli_render(VOL_TOML, VOL_FRAME, CAMERA, png,
                                            (("K1", gm, "launches"), ("K5", vm, "launches")))
         vol_main = vol_frame_summary(out, png, VOL_FRAME, total_s, ran, "kerr-volumetric-streaky", vol_ops,
-                                     marched.efficiency())
+                                     marched.batch_use())
     print(json.dumps(vol_main), flush=True)
 
     phase("16. BL volumetric path: CLI render of kerr-bl-volumetric-streaky")
@@ -2657,7 +2804,7 @@ def main():
             out, total_s, ran = cli_render(BL_VOL_TOML, BL_VOL_FRAME, BL_CAMERA, png,
                                            (("K3", gm, "bl_launches"), ("K5", vm, "launches")))
         bl_vol = vol_frame_summary(out, png, BL_VOL_FRAME, total_s, ran, "kerr-bl-volumetric-streaky", vol_ops,
-                                   marched.efficiency())
+                                   marched.batch_use())
     print(json.dumps(bl_vol), flush=True)
 
     phase("17. K6 against its plain version")
@@ -2745,6 +2892,7 @@ def main():
                              if k == "K1" and dt == torch.float32)),
         "sphere_events": sphere_rows("K1"),
         "resume": resumed["K1"],
+        "critical_path": prod["critical_path"],
         "ms": prod["kernel_ms"],
         "plain_ms": prod["plain_ms"],
         "bound_ms": prod["bound_ms"],
@@ -2785,6 +2933,7 @@ def main():
                              if k == "K3" and dt == torch.float32)),
         "sphere_events": sphere_rows("K3"),
         "resume": resumed["K3"],
+        "critical_path": bl_prod["critical_path"],
         "ms": bl_prod["kernel_ms"],
         "plain_ms": bl_prod["plain_ms"],
         "bound_ms": bl_prod["bound_ms"],
@@ -2818,11 +2967,11 @@ def main():
         "bound_ms": raymarch["bound_ms"],
         "bound_by": raymarch["bound_by"],
         "library_ms": None,
-        "ms_per_frame": vol_main["k5_ms"],
-        "warp_efficiency": {"chunk": raymarch["warp_efficiency"],
-                            "frame_500": vol_main["k5_warp_efficiency"]["frame"],
-                            "bl_256_first_launch": bl_vol["k5_warp_efficiency"]["first_launch"],
-                            "fit_256": vol_fit["k5_warp_efficiency"]},
+        "ms_f64": raymarches[torch.float64]["kernel_ms"],
+        "ms_per_frame": {"frame_500": vol_main["k5_ms"], "bl_256": bl_vol["k5_ms"]},
+        "batch_use": {"chunk": raymarch["batch_use"], "frame_500": vol_main["k5_batch_use"]["frame"],
+                      "bl_256": bl_vol["k5_batch_use"]["frame"], "fit_256": vol_fit["k5_batch_use"]},
+        "critical_path": {"f32": raymarch["critical_path"], "f64": raymarches[torch.float64]["critical_path"]},
         "registers": registers.get("vol_raymarch.cu"),
         "fma": fma_cost["K5"],
     }, {
@@ -2841,6 +2990,8 @@ def main():
         "bound_ms": raw_marches[torch.float32]["bound_ms"],
         "bound_by": raw_marches[torch.float32]["bound_by"],
         "library_ms": None,
+        "ms_f64": raw_marches[torch.float64]["kernel_ms"],
+        "ms_per_fit_step": vol_fit["k6_ms_per_step"],
     }, {
         "name": "vol_adjoint",
         "route": "cuda",

@@ -44,10 +44,10 @@
 //   * one thread per lane, at most 128 registers a thread in float32
 //     (__launch_bounds__ with 4 blocks an SM: 16 resident warps, no
 //     spills). The render path sorts the lanes by march length
-//     (fast_path.volumetric_lanes), so a warp's lanes end close together
-//     (chip_smoke.py measures the warp efficiency: 0.96 on the 500²
-//     frame's lanes); a persistent-lane queue measured slower in float32
-//     (PERF.md).
+//     (fast_path.volumetric_lanes), so a warp's lanes end close together;
+//     but a lane's samples run one after another on its thread, so the
+//     longest lanes' chains set a launch's time (K6 spreads each lane's
+//     samples over a warp instead: csrc/vol_raymarch.cu).
 // The outputs stay per lane: the [n, 5] medium partials are summed by the
 // caller, with no atomics on results, so the sums are deterministic. A
 // lane's loop ends when the lane is done, so a dead lane is never

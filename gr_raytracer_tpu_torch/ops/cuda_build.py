@@ -44,8 +44,9 @@ SOURCES = (
 
 _lock = threading.Lock()
 _libs: dict = {}
-# source (prefixed "<subdirectory>/" for another flag set) -> (seconds, nvcc's
-# stderr: the ptxas register report)
+# source (prefixed "<subdirectory>/" for another flag set) -> (seconds of nvcc,
+# None where the library was cached; nvcc's stderr: the ptxas register report,
+# kept beside the library as <library>.log)
 BUILD_LOG: dict = {}
 
 
@@ -95,11 +96,18 @@ def _start(source: str, flags):
 
 
 def _finish(source: str, flags, path: str, job, t0: float):
-    if job is not None:
+    if job is None:
+        if os.path.exists(path + ".log"):
+            with open(path + ".log") as f:
+                BUILD_LOG[_log_key(source, flags)] = (None, f.read())
+    else:
         proc, tmp = job
         out, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source}:\n{out}\n{err}")
+        with open(tmp + ".log", "w") as f:
+            f.write(err)
+        os.replace(tmp + ".log", path + ".log")
         os.replace(tmp, path)
         BUILD_LOG[_log_key(source, flags)] = (time.perf_counter() - t0, err)
     return ctypes.CDLL(path)

@@ -283,7 +283,8 @@ def supports(obj, geometry) -> bool:
 def march_length(obj, ro, rd, exit_d):
     """Clipped march length per lane ([N]): the same band ∩ cylinder
     interval math as `_march_bounds`, less the hole crossing the march jumps
-    over. The sort key that puts lanes of similar length into one warp."""
+    over. The sort key of the raymarch's lanes (fast_path.volumetric_lanes):
+    K5 and K6 start their longest lanes first."""
     axis = obj.axis.to(ro.dtype)
     d_s = obj.step_size
     h_cut = obj.thickness * math.sqrt(math.log(1.0 / DENSITY_VERTICAL_CUTOFF))

@@ -259,8 +259,11 @@ def volumetric_lanes(obj, ev_kind, ev_data, observer_energy, p_t, p_phi):
     """The raymarch's lanes for every event slot of `obj`, the scene's one
     object (kind 0): (slots [M] into the flattened [N·K] slots, (ro, rd,
     obs_e, p_t, p_phi, active, exit_d)), both sorted by the clipped march
-    length. ro is the crossing point and rd the unit chord of the step that
-    crossed. The compaction reads its exact count: one host sync."""
+    length, ascending: K5 and K6 take a warp per lane from the last lane
+    back, so the longest start first; K7's one thread per lane finds lanes
+    of similar length side by side in a warp. ro is the crossing point and
+    rd the unit chord of the step that crossed. The compaction reads its
+    exact count: one host sync."""
     k = ev_kind.shape[1]
     slots = torch.nonzero((ev_kind == 0).reshape(-1)).flatten()
     ev = ev_data.reshape(-1, ev_data.shape[-1])[slots]
@@ -295,8 +298,8 @@ def trace_rays_fast_vol(scene, positions, momenta, spec=None) -> VolTrace:
     disc: the geometric march, the compaction of the volumetric event slots
     (`volumetric_lanes`: their exact count, exit_distance, the march-length
     sort), one raymarch K5 over the slots, scatter and the alpha fold. K5's
-    per-lane result does not depend on lane order, so the sort only groups
-    lanes of similar length into warps. With the exact count there are no
+    per-lane result does not depend on lane order, so the sort only sets
+    which lanes start first (the longest). With the exact count there are no
     padding lanes to park. Other volumetric scenes raise
     NotImplementedError."""
     if spec is None:
