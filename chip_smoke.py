@@ -12,7 +12,7 @@ non-zero on failure:
      resident warps per SM (ptxas; its report is kept beside each library,
      so a cached build prints it too);
   3. the march kernel K1 against its plain torch version on the card, on
-     65,536 kerr.toml camera rays (the frame's middle CLI chunk) at a
+     65,536 kerr.toml camera rays (the frame's middle 65,536 pixels) at a
      20,000-step budget, in float32 and float64 with the Kahan update off
      and on; and each one's critical path (its longest lane, and the
      kernel's time on the 128 longest lanes alone; as in phases 8, 13, 21
@@ -40,10 +40,21 @@ non-zero on failure:
      march costs milliseconds an iteration whatever the lane count; each
      kernel is timed over the whole budget); then K3
      with checkpoints (every 128 steps) on the 16,384 rays of the BL fit
-     frame, float32 (whole budget) and float64 (first 4,000 steps);
+     frame, float32 (whole budget) and float64 (first 4,000 steps); first
+     K3's registers, spills and resident warps (ptxas) and the instructions
+     of one common-path step of its loop, counted in its SASS (cuobjdump);
   9. the BL main path: the CLI `render` of kerr-bl.toml at 1000×1000
      (docs/examples.md), float32, 4×4 AA; K3 must launch and the frame must
-     show horizon, sky and disc;
+     show horizon, sky and disc; a table of its K3 launches (pass, march or
+     re-trace, leg, lanes, steps, longest lane, ms, steps/s, the share of
+     the steps its first 10 % of lanes take; as for the frames of phases
+     10, 16, 23 and 25), the host seconds spent in the kernel path's
+     functions and the issue share of its steps; then K3 at the main
+     path's shape against its plain version: pass 1's 1,000,000 lanes
+     marched as the render marches them (fast_path._march: two launches,
+     most lanes taken by the kernel's refill) with phase 8's float32 chunk
+     in the place of its own pixels, whose lanes must equal phase 8's plain
+     results bit for bit;
  10. Schwarzschild through K3 at a = 0: the CLI `render` of the disc-only
      Schwarzschild scene of tests/test_golden_frames.py at 512×512;
  11. the BL reverse sweep K4 against its plain version on the BL fit
@@ -78,7 +89,9 @@ non-zero on failure:
      batch use;
  16. the BL volumetric path: the CLI `render` of
      kerr-bl-volumetric-streaky at 256×256 through K3 and K5 (the same K5
-     figures);
+     figures); then phase 9's check of K3 at the main path's shape on its
+     AA pass, with phase 13's float32 chunk in the middle, over the first
+     4,000 steps against phase 13's plain results;
  17. the raw-output raymarch K6 against its plain version on phase 14's
      lanes, float32 and float64, at VOL_COMPARE_STEPS samples; its results
      combined (combine_alpha) against K5's XYZA; K6 alone at 50,000;
@@ -390,6 +403,11 @@ def resident_warps(registers, smem=0, threads=128):
     return min(blocks * warps_per_block, 64)
 
 
+# The bool template flags of a kernel, in order, as ptxas_summary names
+# them (the set ones).
+KERNEL_FLAGS = {"raymarch_kernel": ("raw",), "bl_march_kernel": ("comp",)}
+
+
 def ptxas_summary(log):
     """[{kernel, registers, spill_stores, smem, resident_warps}] of each
     entry function in nvcc's -Xptxas -v report (the kernel's name and
@@ -400,9 +418,10 @@ def ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"\d+([a-z_]+_kernel)I([fd])(?:Lb([01]))?", m.group(1))
-            name = (f"{k.group(1)} {'f32' if k.group(2) == 'f' else 'f64'}{' raw' if k.group(3) == '1' else ''}"
-                    if k else m.group(1)[:48])
+            k = re.search(r"\d+([a-z_]+_kernel)I([fd])((?:Lb[01]E)*)", m.group(1))
+            flags = zip(KERNEL_FLAGS.get(k.group(1), ()), re.findall(r"Lb([01])", k.group(3))) if k else ()
+            name = (f"{k.group(1)} {'f32' if k.group(2) == 'f' else 'f64'}"
+                    + "".join(f" {flag}" for flag, on in flags if on == "1") if k else m.group(1)[:48])
             spill = 0
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -609,10 +628,10 @@ def gather_lanes(lanes, idx):
 
 
 def chunk_inputs(dtype, toml=KERR_TOML, size=FRAME, camera=None, first=None, options=None):
-    """(scene, spec, y0, freq, solver, inverse) for the middle CLI chunk of
-    the size×size frame of `toml` (default: kerr.toml at 1000², the README
-    camera), or the chunk that starts at pixel `first`, cost-sorted as the
-    main path sorts it. `options` override the RenderOptions (budget
+    """(scene, spec, y0, freq, solver, inverse) for the middle N_RAYS pixels
+    of the size×size frame of `toml` (default: kerr.toml at 1000², the
+    README camera), or the N_RAYS that start at pixel `first`, cost-sorted
+    as the main path sorts a chunk. `options` override the RenderOptions (budget
     MAX_STEPS, the CLI's sky radius)."""
     import numpy as np
     import torch
@@ -646,12 +665,14 @@ def lane_relative_error(ref, got):
 
 
 def compare_march(dtype, compensated, flops_per_step, bl=False, attempts=None, toml=None, size=FRAME,
-                  camera=None, first=None, options=None):
+                  camera=None, first=None, options=None, keep=None):
     """K1 (K3 with `bl`) against its plain version on the same inputs, the
-    main path's middle chunk of `toml` (kerr.toml, kerr-bl.toml; `first`
+    middle N_RAYS pixels of `toml` (kerr.toml, kerr-bl.toml; `first`
     and `options` as chunk_inputs takes them) at its budget. The kernel is
     timed over the whole budget; `attempts` bounds the iterations of the
-    comparison (unfinished lanes stay RUNNING). Returns a result dict."""
+    comparison (unfinished lanes stay RUNNING). Returns a result dict; a
+    `keep` dict receives the per-lane inputs ("inputs") and the plain
+    version's results ("ref")."""
     import torch
 
     from gr_raytracer_tpu_torch.ops import geodesic_march as gm
@@ -688,6 +709,8 @@ def compare_march(dtype, compensated, flops_per_step, bl=False, attempts=None, t
     ref = plain(*args, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    if keep is not None:
+        keep.update(inputs=args[3:], ref=ref)
 
     y_g, stop_g, steps_g, kind_g, data_g, count_g, ovf_g = got
     y_r, stop_r, steps_r, kind_r, data_r, count_r, ovf_r = ref
@@ -1234,6 +1257,256 @@ def cli_render(toml, size, camera, png, counters):
     return out, total_s, kernels
 
 
+class K3Launches:
+    """Records each K3 launch of the renders inside the block (by wrapping
+    geodesic_march._march_cuda and raytracer.trace_pixels_chunked): its
+    traced pass (1 or AA), whether it marches the pass's rays or re-traces
+    those that overflowed their event slots (OVERFLOW_MAX_EVENTS slots),
+    its lanes, their steps (on the card until read) and its CUDA events
+    from the launch timer (cli_render sets it); and the pixel coordinates
+    of each traced pass."""
+
+    def __enter__(self):
+        from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+        from gr_raytracer_tpu_torch.rendering import raytracer as rt
+
+        self.gm, self.rt = gm, rt
+        self.inner_march, self.inner_trace = gm._march_cuda, rt.trace_pixels_chunked
+        self.launches, self.passes = [], []
+
+        def march(y0, consts, params, discs, spheres, vols, max_steps, opaque_stop, attempts, finalize, *rest,
+                  **kwargs):
+            out = self.inner_march(y0, consts, params, discs, spheres, vols, max_steps, opaque_stop, attempts,
+                                   finalize, *rest, **kwargs)
+            resume = rest[3] if len(rest) > 3 else kwargs.get("resume")
+            leg = "2" if resume is not None else ("" if finalize else "1")
+            if consts and gm.bl_launch_timer:
+                self.launches.append((len(self.passes), leg, out[3].shape[1], out[2], gm.bl_launch_timer[-1]))
+            return out
+
+        def trace(scene, row_f, col_f, chunk_size, progress=False):
+            self.passes.append((row_f, col_f))
+            return self.inner_trace(scene, row_f, col_f, chunk_size, progress)
+
+        gm._march_cuda = march
+        rt.trace_pixels_chunked = trace
+        return self
+
+    def __exit__(self, *exc):
+        self.gm._march_cuda = self.inner_march
+        self.rt.trace_pixels_chunked = self.inner_trace
+
+    def table(self):
+        """One row a launch: [pass, kind, leg (1 or 2 of a chunk's two legs,
+        "" for one launch), lanes, Σ steps (a lane's total at the end of the
+        launch), longest lane, ms, steps/s (over the steps the launch took:
+        a second leg's less its lanes' steps before it), the share of the
+        launch's steps its first 10 % of lanes take], and a summary by pass
+        and kind."""
+        from gr_raytracer_tpu_torch.rendering.raytracer import OVERFLOW_MAX_EVENTS
+
+        rows, summary, before = [], {}, 0
+        for p, leg, slots, steps, (start, end) in self.launches:
+            n = steps.long()
+            total, ms = int(n.sum()), start.elapsed_time(end)
+            taken = total - (before if leg == "2" else 0)
+            before = total if leg == "1" else 0
+            head = int(n[: max(1, n.numel() // 10)].sum())
+            key = ("1" if p <= 1 else "AA", "retrace" if slots == OVERFLOW_MAX_EVENTS else "march")
+            rows.append([*key, leg, n.numel(), total, int(n.max()) if n.numel() else 0, round(ms, 3),
+                         taken / max(ms / 1e3, 1e-9), round(head / max(total, 1), 4)])
+            s = summary.setdefault(" ".join(key), {"launches": 0, "lanes": 0, "sum_steps": 0, "ms": 0.0})
+            s["launches"] += 1
+            s["ms"] += ms
+            if leg != "1":  # a second leg's lanes and steps hold its first's
+                s["lanes"] += n.numel()
+                s["sum_steps"] += total
+        return {"columns": ["pass", "kind", "leg", "lanes", "sum_steps", "longest", "ms", "steps_per_s",
+                            "first_10pct_share"], "rows": rows, "summary": summary}
+
+
+class HostTime:
+    """Host seconds spent in the kernel path's functions inside the block
+    (fast_path._prepare_march, _march's dispatch, _finish_samples),
+    by wrapping them; a call that waits for the card counts the wait."""
+
+    NAMES = ("_prepare_march", "_march", "_finish_samples")
+
+    def __enter__(self):
+        from gr_raytracer_tpu_torch.rendering import fast_path
+
+        self.module, self.inner, self.seconds = fast_path, {}, {}
+        for name in self.NAMES:
+            self.inner[name] = getattr(fast_path, name)
+            setattr(fast_path, name, self._timed(name, self.inner[name]))
+        return self
+
+    def _timed(self, name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+            return out
+
+        return call
+
+    def __exit__(self, *exc):
+        for name, fn in self.inner.items():
+            setattr(self.module, name, fn)
+
+
+def k3_issue_share(table, instructions_per_step):
+    """The share of the card's issue slots (132 SMs × 4 schedulers × 32
+    lanes × the SM clock) that the frame's K3 launches fill with the
+    common-path instructions of their steps: steps/s × instructions a step
+    over that rate. Lanes idle in a diverged warp are not counted."""
+    import torch
+
+    steps = sum(r[4] for r in table["rows"] if r[2] != "1")
+    ms = sum(r[6] for r in table["rows"])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(nvidia_smi("clocks.max.sm")) * 1e6
+    return steps / (ms / 1e3) * instructions_per_step / (sms * 4 * 32 * clock_hz)
+
+
+def k3_at_main_shape(toml, size, camera_kw, row_f, col_f, compared, attempts=None):
+    """K3 at the main path's shape against its plain version: the lanes of
+    one traced pass of the CLI render of `toml` (pixel coordinates row_f,
+    col_f; float32, the CLI's options; the render's one chunk), prepared as
+    the render prepares them, with a compared chunk's lanes (`compared`,
+    kept by compare_march: its inputs and the plain version's results) in
+    the place of as many lanes in the middle, all marched as the render
+    marches them (fast_path._march; `attempts` as there). The pass holds
+    more lanes than the card keeps threads, so most of them are taken by
+    the kernel's refill. The compared chunk's lanes must equal the plain
+    version's results bit for bit."""
+    import numpy as np
+    import torch
+
+    from gr_raytracer_tpu_torch import config
+    from gr_raytracer_tpu_torch.rendering import camera as cam
+    from gr_raytracer_tpu_torch.rendering import fast_path
+
+    dt = torch.float32
+    opts = config.RenderOptions(width=size, height=size, max_steps=MAX_STEPS, **camera_kw)
+    scene = config.create_scene(config.load_config(toml), opts, dt, torch.device("cuda"))
+    spec = fast_path.scene_kernel_spec(scene)
+    rows = torch.as_tensor(np.asarray(row_f, np.float64), device="cuda").to(dt)
+    cols = torch.as_tensor(np.asarray(col_f, np.float64), device="cuda").to(dt)
+    inputs, ref = compared["inputs"], compared["ref"]
+    n, total = inputs[0].shape[0], rows.numel()
+    at = total // 2 - n // 2
+    lanes = []
+    for lo, hi in ((0, at), (at + n, total)):
+        x, p = cam.pixel_rays(scene.camera, rows[lo:hi], cols[lo:hi])
+        solver, y0, _, _ = fast_path._prepare_march(scene, x, p)
+        lanes.append((y0, solver.e, solver.l_z, solver.q))
+        if lo == 0:
+            lanes.append(inputs)
+    y0, e, l_z, q = (torch.cat(v).contiguous() for v in zip(*lanes))
+    got = fast_path._march(spec, scene.integration, fast_path._Conserved(e, l_z, q), y0, attempts=attempts)
+    eq = lambda g, r: bool(((g == r) | (g.isnan() & r.isnan())).all() if g.is_floating_point() else (g == r).all())
+    return {"pass_lanes": total, "compared_lanes": n, "compared_at": at, "attempts": attempts,
+            "bit_identical": all(eq(g[at:at + n], r) for g, r in zip(got, ref))}
+
+
+def sass_k3_step(source="kerr_bl_march.cu", kernel="bl_march_kernel"):
+    """Instructions of `kernel` in the SASS of its built library (cuobjdump,
+    where the toolkit has it), in f32 and f64: the whole function, and one
+    iteration of its step loop along the common path, for each of its
+    builds (keyed by type and set template flags). The loop's backward
+    branches are those that span at least half the widest one's; a walk
+    from a backward branch's target takes every forward branch that stays
+    before it (they skip the event blocks, the checkpoint store and the
+    calls of the slow paths; the refill of a stopped lane lies past the
+    step's own backward branch), and the longest such walk is the step. It
+    counts every instruction issued, predicated ones too. Each count is
+    split into MUFU, conversions (F2I, I2F, FRND, F2F), calls (named by their
+    target) and the rest."""
+    import re
+
+    from gr_raytracer_tpu_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {"cuobjdump": "not in the toolkit"}
+    lib = cuda_build._lib_path(source, cuda_build.NVCC_FLAGS)
+    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    ins_re = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+    label_re = re.compile(r"^\s*([.$][^\s:]+):\s*$")
+    out = {}
+    for section in text.split("Function : ")[1:]:
+        m = re.search(kernel + r"I([fd])((?:Lb[01]E)*)", section.split()[0])
+        if not m:
+            continue
+        flags = "".join(f" {flag}" for flag, on in zip(KERNEL_FLAGS.get(kernel, ()), re.findall(r"Lb([01])", m.group(2)))
+                        if on == "1")
+        ins, labels, pending = [], {}, []
+        for line in section.splitlines():
+            lm = label_re.match(line)
+            if lm:
+                pending.append(lm.group(1))
+                continue
+            im = ins_re.search(line)
+            if im:
+                for name in pending:
+                    labels[name] = len(ins)
+                pending = []
+                ins.append({"addr": int(im.group(1), 16), "pred": im.group(2), "op": im.group(3),
+                            "args": im.group(4)})
+        by_addr = {v["addr"]: i for i, v in enumerate(ins)}
+
+        def target(v):
+            lm = re.search(r"`\(([^)]+)\)", v["args"])
+            if lm:
+                return labels.get(lm.group(1))
+            hm = re.search(r"0x([0-9a-f]+)", v["args"])
+            return by_addr.get(int(hm.group(1), 16)) if hm else None
+
+        def classify(seq):
+            c = {"instructions": len(seq), "mufu": 0, "conversions": 0, "calls": {}}
+            for v in seq:
+                if v["op"].startswith("MUFU"):
+                    c["mufu"] += 1
+                elif v["op"].split(".")[0] in ("F2I", "I2F", "FRND", "F2F", "I2FP", "F2IP"):
+                    c["conversions"] += 1
+                elif v["op"].startswith("CALL"):
+                    name = re.sub(r"^.*\$", "", v["args"].strip(" `()"))
+                    c["calls"][name] = c["calls"].get(name, 0) + 1
+            return c
+
+        backs = [(i - t, t, i) for i, v in enumerate(ins)
+                 if v["op"].startswith("BRA") and (t := target(v)) is not None and t < i]
+
+        def walk(lo, hi):
+            """The path from lo that takes every forward branch up to hi;
+            None unless it reaches hi."""
+            path, pc = [], lo
+            while lo <= pc <= hi and len(path) < len(ins):
+                v = ins[pc]
+                path.append(v)
+                if pc == hi:
+                    return path
+                t = target(v) if v["op"].startswith("BRA") else None
+                if t is not None and pc < t <= hi:
+                    pc = t
+                    continue
+                if t is not None and v["pred"] is None:
+                    return None
+                pc += 1
+            return None
+
+        entry = classify(ins)
+        if backs:
+            # The loop's back edges (the step's, and the refilled lane's)
+            # span most of the function; the step's walk is the longest.
+            widest = max(backs)[0]
+            paths = [p for span, t, i in backs if 2 * span >= widest and (p := walk(t, i))]
+            entry["loop"] = {"span": widest + 1, "common_path": classify(max(paths, key=len, default=[]))}
+        out[("f32" if m.group(1) == "f" else "f64") + flags] = entry
+    return out
+
+
 class Slot0Kinds:
     """Counts the slot-0 event kinds of every ray the kernel path shades
     (pass 1 and AA) by wrapping fast_path._finish_samples; the counts stay
@@ -1298,8 +1571,9 @@ def check_frame(out, png, size, codes, what):
 
 def nan_lanes_report(limit=20):
     """Every pass-1 ray of the 1000² kerr.toml frame that stops NAN: its
-    pixel, initial state (exact float32 values) and stop step. Marched
-    chunk by chunk as the render does, outside the main path's count."""
+    pixel, initial state (exact float32 values) and stop step. Marched in
+    N_RAYS-ray pieces (a lane's march does not depend on the others),
+    outside the main path's count."""
     import numpy as np
     import torch
 
@@ -1665,7 +1939,7 @@ def vol_frame_summary(out, png, size, total_s, ran, what, ops, use):
 
 def vol_chunk_lanes(dtype):
     """(raymarch spec, lanes, the disc's [5] medium) of the volumetric slots
-    of the main path's middle chunk of the 500² kerr-volumetric-streaky
+    of the middle 65,536 pixels of the 500² kerr-volumetric-streaky
     frame, compacted and sorted as the render does."""
     from gr_raytracer_tpu_torch import inverse
     from gr_raytracer_tpu_torch.rendering import fast_path
@@ -2199,7 +2473,7 @@ def sphere_render_phases():
     ), start=23):
         phase(f"{number}. sphere path: CLI render of {name}")
         counter = ("K3", gm, "bl_launches") if label == "K3" else ("K1", gm, "launches")
-        with tempfile.TemporaryDirectory() as tmp, Slot0Kinds() as slot0:
+        with tempfile.TemporaryDirectory() as tmp, Slot0Kinds() as slot0, K3Launches() as k3:
             png = os.path.join(tmp, name.replace(".toml", ".png"))
             out, total_s, ran = cli_render(toml, size, camera, png, (counter,))
             # Flat scenes (r_s = 0) have no horizon.
@@ -2212,6 +2486,8 @@ def sphere_render_phases():
                         "kernel": label, "launches": k_launches, "kernel_ms": k_ms,
                         "kernel_share": k_ms / 1e3 / total_s, "slot0_sphere_hits": sphere_hits,
                         "slot0_disc_hits": disc_hits, "slot0_no_event": none})
+        if label == "K3":
+            summary["k3_launch_table"] = k3.table()
         sphere_renders[name] = summary
         print(json.dumps(summary), flush=True)
         if k_launches == 0:
@@ -2692,7 +2968,9 @@ def main():
     phase("8. K3 against its plain version")
     bl_flops_step = count_bl_step_flops()
     print(f"flops per ray-step of the BL march (plain step, counted): {bl_flops_step}")
-    bl_variants = {}
+    k3_sass = sass_k3_step()
+    print(json.dumps({"k3_ptxas": registers.get("kerr_bl_march.cu"), "k3_sass": k3_sass}), flush=True)
+    bl_variants, bl_chunk = {}, {}
     for dtype in (torch.float32, torch.float64):
         for compensated in (False, True):
             # The main path's configuration runs its whole budget; the plain
@@ -2700,7 +2978,7 @@ def main():
             # other variants compare their first BL_COMPARE_ATTEMPTS steps.
             full = dtype == torch.float32 and not compensated
             r = compare_march(dtype, compensated, bl_flops_step, bl=True,
-                              attempts=None if full else BL_COMPARE_ATTEMPTS)
+                              attempts=None if full else BL_COMPARE_ATTEMPTS, keep=bl_chunk if full else None)
             bl_variants[(dtype, compensated)] = r
             print(json.dumps(r), flush=True)
             if not r["ok"]:
@@ -2717,16 +2995,30 @@ def main():
     phase("9. BL main path: CLI render of kerr-bl.toml")
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, "render-kerr-bl.png")
-        out, total_s, ran = cli_render(KERR_BL_TOML, FRAME, BL_CAMERA, png, (("K3", gm, "bl_launches"),))
+        with K3Launches() as k3_kerr_bl, HostTime() as host:
+            out, total_s, ran = cli_render(KERR_BL_TOML, FRAME, BL_CAMERA, png, (("K3", gm, "bl_launches"),))
         bl_render_launches, k3_ms = ran["K3"]
         if bl_render_launches == 0:
             fail("the BL main path launched K3 no time")
         bl_main = check_frame(out, png, FRAME, (1, 2, 7), "kerr-bl.toml")
     bl_main.update({"max_steps": MAX_STEPS, "mino_budget": 2 * MAX_STEPS, "total_s": total_s,
+                    "host_s_by_function": host.seconds,
                     "k3_launches": bl_render_launches, "k3_ms": k3_ms,
                     "k3_bound_ms": (bl_main["pass1_ray_steps"] + bl_main["aa_ray_steps"]) * bl_flops_step
                     / card_peak_flops(torch.float32) * 1e3})
     print(json.dumps(bl_main), flush=True)
+    k3_tables = {"kerr-bl.toml": k3_kerr_bl.table()}
+    print(json.dumps({"k3_launches": "kerr-bl.toml", **k3_tables["kerr-bl.toml"]}), flush=True)
+    f32_step = k3_sass.get("f32", {}).get("loop", {}).get("common_path", {}).get("instructions")
+    if f32_step:
+        print(json.dumps({"k3_issue_share": {"kerr-bl.toml": k3_issue_share(k3_tables["kerr-bl.toml"], f32_step),
+                                             "instructions_per_step": f32_step}}), flush=True)
+    k3_main_shape = {"kerr-bl.toml pass 1": k3_at_main_shape(KERR_BL_TOML, FRAME, BL_CAMERA_KW,
+                                                             *k3_kerr_bl.passes[0], bl_chunk)}
+    del bl_chunk
+    print(json.dumps({"k3_at_main_shape": k3_main_shape}), flush=True)
+    if not k3_main_shape["kerr-bl.toml pass 1"]["bit_identical"]:
+        fail(f"K3 at the main path's shape disagrees with its plain version: {k3_main_shape}")
 
     phase("10. Schwarzschild through K3 at a = 0")
     with tempfile.TemporaryDirectory() as tmp:
@@ -2734,7 +3026,8 @@ def main():
         with open(toml, "w") as f:
             f.write(SCHWARZSCHILD_DISC_TOML)
         png = os.path.join(tmp, "render-schwarzschild.png")
-        out, total_s, ran = cli_render(toml, SCHWARZSCHILD_SIZE, BL_CAMERA, png, (("K3", gm, "bl_launches"),))
+        with K3Launches() as k3_sch:
+            out, total_s, ran = cli_render(toml, SCHWARZSCHILD_SIZE, BL_CAMERA, png, (("K3", gm, "bl_launches"),))
         sch_launches, sch_ms = ran["K3"]
         if sch_launches == 0:
             fail("the Schwarzschild path launched K3 no time")
@@ -2743,6 +3036,8 @@ def main():
             fail(f"no disc hit in the Schwarzschild frame: {sch}")
     sch.update({"total_s": total_s, "k3_launches": sch_launches, "k3_ms": sch_ms})
     print(json.dumps(sch), flush=True)
+    k3_tables["Schwarzschild disc"] = k3_sch.table()
+    print(json.dumps({"k3_launches": "Schwarzschild disc", **k3_tables["Schwarzschild disc"]}), flush=True)
 
     phase("11. K4 against its plain version")
     bl_sweep_flops = count_bl_sweep_flops()
@@ -2762,12 +3057,13 @@ def main():
     print(json.dumps(bl_fit), flush=True)
 
     phase("13. K1 and K3 with volume events against their plain versions")
-    vol_marches = {}
+    vol_marches, bl_vol_chunk = {}, {}
     for dtype in (torch.float32, torch.float64):
         for bl in (False, True):
             if bl:
                 r = compare_march(dtype, False, bl_flops_step, bl=True, attempts=BL_COMPARE_ATTEMPTS,
-                                  toml=BL_VOL_TOML, size=BL_VOL_FRAME, camera=BL_CAMERA_KW)
+                                  toml=BL_VOL_TOML, size=BL_VOL_FRAME, camera=BL_CAMERA_KW,
+                                  keep=bl_vol_chunk if dtype == torch.float32 else None)
             else:
                 r = compare_march(dtype, False, flops_per_step, toml=VOL_TOML, size=VOL_FRAME,
                                   camera=VOL_CAMERA_KW)
@@ -2800,12 +3096,22 @@ def main():
     phase("16. BL volumetric path: CLI render of kerr-bl-volumetric-streaky")
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, "render-bl-volumetric.png")
-        with RaymarchSamples() as marched:
+        with RaymarchSamples() as marched, K3Launches() as k3_bl_vol:
             out, total_s, ran = cli_render(BL_VOL_TOML, BL_VOL_FRAME, BL_CAMERA, png,
                                            (("K3", gm, "bl_launches"), ("K5", vm, "launches")))
         bl_vol = vol_frame_summary(out, png, BL_VOL_FRAME, total_s, ran, "kerr-bl-volumetric-streaky", vol_ops,
                                    marched.batch_use())
     print(json.dumps(bl_vol), flush=True)
+    k3_tables["kerr-bl-volumetric-streaky"] = k3_bl_vol.table()
+    print(json.dumps({"k3_launches": "kerr-bl-volumetric-streaky", **k3_tables["kerr-bl-volumetric-streaky"]}),
+          flush=True)
+    shape = k3_at_main_shape(BL_VOL_TOML, BL_VOL_FRAME, BL_CAMERA_KW, *k3_bl_vol.passes[1], bl_vol_chunk,
+                             attempts=BL_COMPARE_ATTEMPTS)
+    del bl_vol_chunk
+    k3_main_shape["kerr-bl-volumetric-streaky AA pass"] = shape
+    print(json.dumps({"k3_at_main_shape": {"kerr-bl-volumetric-streaky AA pass": shape}}), flush=True)
+    if not shape["bit_identical"]:
+        fail(f"K3 at the main path's shape disagrees with its plain version: {shape}")
 
     phase("17. K6 against its plain version")
     raw_marches = {}
@@ -2852,6 +3158,7 @@ def main():
 
     sphere_marches = sphere_march_phases()
     sphere_renders = sphere_render_phases()
+    k3_tables.update({name: r["k3_launch_table"] for name, r in sphere_renders.items() if "k3_launch_table" in r})
     f64_gradient_phase(vol_fit)
     sphere_sweeps, sphere_fit = sphere_gradient_phases()
     resumed = resume_phase()
@@ -2933,6 +3240,11 @@ def main():
                              if k == "K3" and dt == torch.float32)),
         "sphere_events": sphere_rows("K3"),
         "resume": resumed["K3"],
+        "registers": registers.get("kerr_bl_march.cu"),
+        "sass_common_path_instructions": {k: v["loop"]["common_path"]["instructions"] for k, v in k3_sass.items()
+                                          if isinstance(v, dict) and "loop" in v},
+        "launches_by_frame": {frame: t["summary"] for frame, t in k3_tables.items()},
+        "at_main_shape": k3_main_shape,
         "critical_path": bl_prod["critical_path"],
         "ms": bl_prod["kernel_ms"],
         "plain_ms": bl_prod["plain_ms"],

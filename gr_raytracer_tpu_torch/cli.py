@@ -19,6 +19,8 @@ import torch
 
 
 def _build_parser():
+    from gr_raytracer_tpu_torch.rendering.raytracer import CHUNK_SIZE
+
     p = argparse.ArgumentParser(prog="gr-raytracer-tpu-torch", description=__doc__)
     p.add_argument("--width", type=int, default=500)
     p.add_argument("--height", type=int, default=500)
@@ -35,7 +37,8 @@ def _build_parser():
     p.add_argument("--sampling-mask-color", type=str, default="255,0,255")
     p.add_argument("-c", "--config-file", type=str, default=None)
     p.add_argument("--f64", action="store_true", help="float64 instead of float32")
-    p.add_argument("--chunk-size", type=int, default=65536, help="rays per march launch")
+    p.add_argument("--chunk-size", type=int, default=CHUNK_SIZE,
+                   help="rays traced together: prepared, marched (two K3 launches in Mino time), shaded and folded")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
 
     sub = p.add_subparsers(dest="action", required=True)
@@ -84,6 +87,8 @@ def cmd_render(args, dtype, device):
     from gr_raytracer_tpu_torch.rendering import raytracer as rt
     from gr_raytracer_tpu_torch.rendering.color import srgb8_to_xyza
 
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     opts, scene = _load_scene(args, dtype, device)
     t_scene = time.perf_counter() - t0
@@ -115,6 +120,8 @@ def cmd_render(args, dtype, device):
             "still overflowing)",
             file=sys.stderr,
         )
+    if device.type == "cuda":
+        print(f"peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB", file=sys.stderr)
     print(f"saved image to {args.filename} ({time.perf_counter() - t0:.1f}s)")
     return out
 

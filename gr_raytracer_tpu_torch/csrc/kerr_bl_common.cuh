@@ -31,29 +31,54 @@ __device__ __forceinline__ Dual<T> abs_(Dual<T> x) {
   return Dual<T>(abs_(x.v), s * x.d);
 }
 
-// Mino-time dy/dλ for components 0..5 (6 and 7 are 0). The reciprocals
-// 1/Δ, 1/sin²θ and 1/sin³θ share one divide, 1/(Δ·sin²θ). At a pole the
-// result is not finite, and the march stops the lane NAN (_bl_rhs).
+// The terms of mino_rhs that depend on the lane alone, each rounded as
+// mino_rhs's expression rounds it (its products are taken left to right),
+// so that a march computes them once.
 template <typename S>
-__device__ __forceinline__ void mino_rhs(S r_s, S a, S e, S l_z, S q, const S* y, S* out) {
-  const S r = y[1], theta = y[2];
-  const S delta = r * r - r_s * r + a * a;
-  const S p_r = (r * r + a * a) * e - a * l_z;
-  const S st = sin_(theta);
-  const S ct = cos_(theta);
+struct MinoConsts {
+  S a2;      // a·a
+  S a_lz;    // a·L_z
+  S a_e;     // a·E
+  S carter;  // (L_z − a·E)² + Q
+  S th_a;    // −2·a·a·E·E
+  S th_l;    // 2·L_z·L_z
+};
+
+template <typename S>
+__device__ __forceinline__ MinoConsts<S> mino_consts(S a, S e, S l_z, S q) {
+  MinoConsts<S> C;
+  C.a2 = a * a;
+  C.a_lz = a * l_z;
+  C.a_e = a * e;
+  const S lae = l_z - C.a_e;
+  C.carter = lae * lae + q;
+  C.th_a = S(-2) * a * a * e * e;
+  C.th_l = S(2) * l_z * l_z;
+  return C;
+}
+
+// Mino-time dy/dλ for components 0..5 (6 and 7 are 0), given st, ct =
+// sin θ, cos θ of y. The reciprocals 1/Δ, 1/sin²θ and 1/sin³θ share one
+// divide, 1/(Δ·sin²θ). At a pole the result is not finite, and the march
+// stops the lane NAN (_bl_rhs, whose products −2·a·a·E·E·cosθ·sinθ and
+// 2·L_z·L_z·cosθ/sin³θ begin with C.th_a and C.th_l).
+template <typename S>
+__device__ __forceinline__ void mino_rhs(S r_s, S a, S e, S l_z, const MinoConsts<S>& C, const S* y,
+                                         S st, S ct, S* out) {
+  const S r = y[1];
+  const S delta = r * r - r_s * r + C.a2;
+  const S p_r = (r * r + C.a2) * e - C.a_lz;
   const S sin2 = st * st;
   const S inv_ds = S(1) / (delta * sin2);
   const S inv_delta = inv_ds * sin2;
   const S inv_sin2 = inv_ds * delta;
-  out[0] = (r * r + a * a) * inv_delta * p_r + a * (l_z - a * e * sin2);
+  out[0] = (r * r + C.a2) * inv_delta * p_r + a * (l_z - C.a_e * sin2);
   out[1] = y[4];
   out[2] = y[5];
-  out[3] = a * inv_delta * p_r + l_z * inv_sin2 - a * e;
-  const S lae = l_z - a * e;
-  const S carter_term = lae * lae + q;
-  out[4] = S(0.5) * (S(4) * r * e * p_r - (S(2) * r - r_s) * carter_term);
+  out[3] = a * inv_delta * p_r + l_z * inv_sin2 - C.a_e;
+  out[4] = S(0.5) * (S(4) * r * e * p_r - (S(2) * r - r_s) * C.carter);
   const S inv_st3 = st * inv_sin2 * inv_sin2;
-  out[5] = S(0.5) * (S(-2) * a * a * e * e * ct * st + S(2) * l_z * l_z * ct * inv_st3);
+  out[5] = S(0.5) * (C.th_a * ct * st + C.th_l * ct * inv_st3);
 }
 
 // p^μ = (1/Σ)(dt/dλ, v_r, v_θ, dφ/dλ); each reciprocal is its own divide
@@ -91,12 +116,24 @@ struct MinoRule {
   T h0, h_min_frac, r_ref;
 };
 
+// mino_rhs with sin θ and cos θ of y from one sincos.
+template <typename S>
+__device__ __forceinline__ void mino_rhs(S r_s, S a, S e, S l_z, const MinoConsts<S>& C, const S* y,
+                                         S* out) {
+  S st, ct;
+  sincos_(y[2], st, ct);
+  mino_rhs(r_s, a, e, l_z, C, y, st, ct, out);
+}
+
 // One Mino-time RK4 increment y_new − y from state y, with
 // h = h0/|E| / (1 + (r/r_ref)²) · clip((r − r₊)/r_ref, h_min_frac, 1)
-// (_bl_step_size, _bl_rk4_delta). No far-field lever.
+// (_bl_step_size, _bl_rk4_delta). No far-field lever. C: the lane's
+// mino_consts; st0, ct0: sin θ and cos θ of y, which the march carries
+// from the step before (they are the values stage 1 would compute).
 template <typename S, typename T>
 __device__ __forceinline__ void mino_rk4_delta(const MinoRule<T>& R, S radius, S a, S r_plus, S e,
-                                          S l_z, S q, S inv_e, const S* y, S* delta) {
+                                          S l_z, const MinoConsts<S>& C, S inv_e, const S* y, S st0,
+                                          S ct0, S* delta) {
   const S r_here = y[1];
   const S u = r_here / S(R.r_ref);
   const S gap = clip((r_here - r_plus) / S(R.r_ref), S(R.h_min_frac), S(1));
@@ -105,30 +142,40 @@ __device__ __forceinline__ void mino_rk4_delta(const MinoRule<T>& R, S radius, S
   S k[6], acc[6], tmp[8];
   tmp[6] = y[6];
   tmp[7] = y[7];
-  mino_rhs(radius, a, e, l_z, q, y, k);
+  mino_rhs(radius, a, e, l_z, C, y, st0, ct0, k);
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
     acc[i] = k[i];
     tmp[i] = y[i] + half_h * k[i];
   }
-  mino_rhs(radius, a, e, l_z, q, tmp, k);
+  mino_rhs(radius, a, e, l_z, C, tmp, k);
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
     acc[i] = acc[i] + S(2) * k[i];
     tmp[i] = y[i] + half_h * k[i];
   }
-  mino_rhs(radius, a, e, l_z, q, tmp, k);
+  mino_rhs(radius, a, e, l_z, C, tmp, k);
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
     acc[i] = acc[i] + S(2) * k[i];
     tmp[i] = y[i] + h * k[i];
   }
-  mino_rhs(radius, a, e, l_z, q, tmp, k);
+  mino_rhs(radius, a, e, l_z, C, tmp, k);
   const S h6 = h / S(6);
 #pragma unroll
   for (int i = 0; i < 6; ++i) delta[i] = h6 * (acc[i] + k[i]);
   delta[6] = h6 * S(0);
   delta[7] = h6 * S(0);
+}
+
+// mino_rk4_delta with the lane's terms and stage 1's sin θ and cos θ
+// computed here.
+template <typename S, typename T>
+__device__ __forceinline__ void mino_rk4_delta(const MinoRule<T>& R, S radius, S a, S r_plus, S e,
+                                          S l_z, S q, S inv_e, const S* y, S* delta) {
+  S st, ct;
+  sincos_(y[2], st, ct);
+  mino_rk4_delta(R, radius, a, r_plus, e, l_z, mino_consts(a, e, l_z, q), inv_e, y, st, ct, delta);
 }
 
 // 1/max(|E|, 1e-12), the march's per-lane step scale.

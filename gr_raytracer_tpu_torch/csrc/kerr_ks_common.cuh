@@ -128,6 +128,18 @@ template <typename T>
 __device__ __forceinline__ Dual<T> sin_(Dual<T> x) {
   return Dual<T>(sin_(x.v), cos_(x.v) * x.d);
 }
+// sin and cos of one angle from one range reduction: the same values as
+// sin_ and cos_ (the library's sincos shares their reduction and
+// polynomials), and for duals the same tangents.
+__device__ __forceinline__ void sincos_(float x, float& s, float& c) { sincosf(x, &s, &c); }
+__device__ __forceinline__ void sincos_(double x, double& s, double& c) { sincos(x, &s, &c); }
+template <typename T>
+__device__ __forceinline__ void sincos_(Dual<T> x, Dual<T>& s, Dual<T>& c) {
+  T sv, cv;
+  sincos_(x.v, sv, cv);
+  s = Dual<T>(sv, cv * x.d);
+  c = Dual<T>(cv, -sv * x.d);
+}
 
 // NaN-propagating max / min / clip, the semantics of jnp.maximum & co. For
 // duals a tie splits the tangent half and half, as jnp.maximum's VJP does

@@ -915,10 +915,11 @@ def march_bl_plain(
 # ---------------------------------------------------------------------------
 
 # The two kernels: K1 (Kerr-Schild) and K3 (Boyer-Lindquist). Entry points
-# take (y0[, e, l_z, q], n, outputs..., ckpt, resume, params, discs,
+# take (y0[, e, l_z, q], n, outputs..., ckpt, resume[, next], params, discs,
 # n_discs, spheres, n_spheres, vols, n_vols, ints, stream) and return the
 # CUDA error code of the launch; resume is null or the six per-lane inputs
-# (stop, steps, ev_kind, ev_data, ev_count, ev_ovf) of a resumed march.
+# (stop, steps, ev_kind, ev_data, ev_count, ev_ovf) of a resumed march;
+# next is K3's lane counter for its refill, an int32 on the card set to 0.
 _KERNELS = {
     False: ("kerr_rk4_march", "kerr_rk4_march.cu"),
     True: ("kerr_bl_rk4_march", "kerr_bl_march.cu"),
@@ -937,7 +938,7 @@ def _entry(bl, dtype):
         fn = getattr(lib, f"{stem}_f32" if dtype == torch.float32 else f"{stem}_f64")
         p = ctypes.c_void_p
         fn.argtypes = [p] * (4 if bl else 1) + [
-            ctypes.c_int64, p, p, p, p, p, p, p, p, ctypes.POINTER(p),
+            ctypes.c_int64, p, p, p, p, p, p, p, p, ctypes.POINTER(p), *([p] if bl else []),
             ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double), ctypes.c_int,
             ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.POINTER(ctypes.c_double), ctypes.c_int,
             ctypes.POINTER(ctypes.c_int), p,
@@ -996,6 +997,9 @@ def _march_cuda(y0, consts, params, discs, spheres, vols, max_steps, opaque_stop
         int(attempts), int(max_steps), int(bool(opaque_stop)), int(bool(finalize)),
         int(bool(compensated)), int(ckpt_every), int(max_events),
     )
+    # K3's refill counter: the lanes its threads have taken past their first.
+    counter = torch.zeros(1, dtype=torch.int32, device=dev) if bl else None
+    next_lane = (counter.data_ptr(),) if bl else ()
     fn = _entry(bl, dtype)
     timer = bl_launch_timer if bl else launch_timer
     with torch.cuda.device(dev):
@@ -1006,7 +1010,7 @@ def _march_cuda(y0, consts, params, discs, spheres, vols, max_steps, opaque_stop
         err = fn(
             y0.data_ptr(), *(v.data_ptr() for v in consts), n, y_out.data_ptr(), stop.data_ptr(),
             steps.data_ptr(), ev_kind.data_ptr(), ev_data.data_ptr(), ev_count.data_ptr(),
-            ev_ovf.data_ptr(), None if ckpt is None else ckpt.data_ptr(), resume_ptrs, params,
+            ev_ovf.data_ptr(), None if ckpt is None else ckpt.data_ptr(), resume_ptrs, *next_lane, params,
             disc_rows(discs), len(discs), sphere_rows(spheres), len(spheres), vol_rows, len(vols), ints,
             stream.cuda_stream,
         )
@@ -1082,7 +1086,9 @@ def kerr_bl_rk4_march(
     the embedded segment (sphere and volume roots are found on the embedded
     chord, after a near test in BL). A
     CUDA tensor goes through the kernel csrc/kerr_bl_march.cu,
-    a CPU tensor through `march_bl_plain`."""
+    a CPU tensor through `march_bl_plain`. The kernel runs as many threads
+    as the card keeps resident, each taking the next lane (in index order)
+    when its own stops, so lanes expected to march longest go first."""
     _check_bl_args(y0, e, l_z, q, discs, spheres, vols, resume, ckpt_every, max_events)
     if y0.device.type == "cpu":
         return march_bl_plain(

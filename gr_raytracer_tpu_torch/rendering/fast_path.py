@@ -11,11 +11,12 @@ scenes. Integration and crossing detection run in the march
 of rendering/scene.py, with the scene's own geometry. A scene whose one
 object is a volumetric disc goes through `trace_rays_fast_vol`: the
 geometric march, the compaction of its volumetric event slots, and one
-raymarch K5 over them (ops/volumetric_march.py). Nothing here synchronizes
-with the card except that compaction (one count per chunk), so chunks of
-rays can be queued ahead of the host. `trace_rays_fast_vol_diff` is the
-differentiable form of that path: gradients flow from the colors to the
-five medium parameters through K6 and K7 (ops/volumetric_adjoint.py).
+raymarch K5 over them (ops/volumetric_march.py). A Mino-time march goes
+in two launches of K3 (`_march`). Nothing here synchronizes with the
+card except that compaction (one count per call), so chunks of rays can be
+queued ahead of the host. `trace_rays_fast_vol_diff` is the differentiable
+form of that path: gradients flow from the colors to the five medium
+parameters through K6 and K7 (ops/volumetric_adjoint.py).
 """
 
 from __future__ import annotations
@@ -41,6 +42,10 @@ from gr_raytracer_tpu_torch.rendering.redshift import ray_frequency_data
 # budget the y += delta summation random walk dominated the drift of the
 # conserved quantities; below this budget it never approaches the bar.
 DEEP_BUDGET_COMPENSATION = 100_000
+# The first leg of a Mino-time march, in steps (`_march`): the
+# lanes that stop within it (disc and horizon hits: the median lane of the
+# kerr-bl.toml frame takes 84) leave the second launch to the long ones.
+FIRST_LEG = 512
 
 
 def supports_scene(scene) -> bool:
@@ -208,6 +213,45 @@ def _run_kernel(spec: KernelSpec, cfg, solver, y0, attempts=None, resume=None, f
     )
 
 
+class _Conserved(NamedTuple):
+    """A Mino-time march's per-lane E, L_z and Q (what `_run_kernel` reads
+    of a solver)."""
+
+    e: torch.Tensor
+    l_z: torch.Tensor
+    q: torch.Tensor
+
+
+def _march(spec: KernelSpec, cfg, solver, y0, attempts=None):
+    """The march of a batch of lanes: its raw 7-tuple in the lanes' order.
+    `solver` holds the Mino-time march's E, L_z and Q; `attempts` bounds
+    each lane's iterations over the legs and leaves the unfinished lanes
+    RUNNING (a comparison with the plain march on a cut budget).
+
+    K3 takes its lanes in index order, one a resident thread at a time
+    (ops/geodesic_march.py), so a Mino-time march runs in two legs: every
+    lane's first FIRST_LEG steps in the given order, where the lanes that
+    hit a disc or the horizon early stop; then the lanes still running
+    first, nearest the hole first (the orbiting ones, which march longest;
+    escaping ones are far out by then), each lane's state, counters and
+    events carried over (`resume`: one march's results bit for bit). Deep
+    budgets (the Kahan update, which a leg would restart) and Kerr-Schild
+    lanes march in one launch."""
+    if not spec.mino or cfg.max_steps >= DEEP_BUDGET_COMPENSATION:
+        return _run_kernel(spec, cfg, solver, y0, attempts=attempts, finalize=attempts is None)
+    first = FIRST_LEG if attempts is None else min(FIRST_LEG, attempts)
+    leg1 = _run_kernel(spec, cfg, solver, y0, attempts=first, finalize=False)
+    running = leg1[1] == integ.RUNNING
+    order = torch.argsort(torch.where(running, leg1[0][:, 1], torch.inf), stable=True)
+    leg1 = [v[order] for v in leg1]
+    lanes = _Conserved(solver.e[order], solver.l_z[order], solver.q[order])
+    leg2 = _run_kernel(spec, cfg, lanes, leg1[0], resume=leg1, attempts=None if attempts is None else attempts - first,
+                       finalize=attempts is None)
+    unsort = torch.empty_like(order)
+    unsort[order] = torch.arange(order.numel(), device=order.device)
+    return [v[unsort] for v in leg2]
+
+
 def _finish_samples(scene, res, freq, solver, inverse, first_event_only=False):
     """Shade and fold a marched result into RaySamples, in the caller's ray
     order. first_event_only (every texture opaque): the first event
@@ -233,7 +277,7 @@ def trace_rays_fast(scene, positions, momenta, spec=None):
     if spec is None:
         spec = scene_kernel_spec(scene)
     solver, y0, freq, inverse = _prepare_march(scene, positions, momenta)
-    res = integ.IntegrationResult(*_run_kernel(spec, scene.integration, solver, y0))
+    res = integ.IntegrationResult(*_march(spec, scene.integration, solver, y0))
     return _finish_samples(scene, res, freq, solver, inverse, first_event_only=spec.opaque)
 
 
@@ -243,7 +287,7 @@ def trace_geometric_fast(scene, positions, momenta, spec=None) -> scn.GeoTrace:
     if spec is None:
         spec = scene_kernel_spec(scene)
     solver, y0, freq, inverse = _prepare_march(scene, positions, momenta)
-    res = integ.IntegrationResult(*_run_kernel(spec, scene.integration, solver, y0))
+    res = integ.IntegrationResult(*_march(spec, scene.integration, solver, y0))
     colors, shade_fail = scn._shade_events(scene, freq, res, include_volumetric=False)
     stop_shaded = torch.where(shade_fail, integ.STEP_FAILED, res.stop_code)
     celestial = scn._celestial_color(scene, freq, solver, res)

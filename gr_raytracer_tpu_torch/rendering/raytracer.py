@@ -2,7 +2,8 @@
 (port of the kernel branch of gr_raytracer_tpu/rendering/raytracer.py).
 
   * Pass 1 traces the section of the pixel grid in fixed-size chunks through
-    the kernel path. The chunks form a one-deep pipeline: chunk i+1 is
+    the kernel path (a Mino-time chunk in two launches of K3,
+    fast_path._march). The chunks form a one-deep pipeline: chunk i+1 is
     queued on the card before chunk i's results are read on the host. A
     volumetric scene's chunk syncs once inside (the count of its volumetric
     event slots, fast_path.trace_rays_fast_vol), after which its raymarch
@@ -36,6 +37,13 @@ from gr_raytracer_tpu_torch.utils.png import png_encode
 # A ray whose event slots overflow is traced again with this many (the JAX
 # package's re-trace capacity; it re-traces on its lax RKF45 path).
 OVERFLOW_MAX_EVENTS = 32
+# Rays a chunk by default (the CLI's `--chunk-size`): a 1000² pass in one,
+# so that a K3 launch holds far more lanes than the card keeps threads and
+# its longest lanes run beside the others' bulk, and the host dispatches
+# each step of the preparation and shading once a pass. The float32 frames
+# of scene-definitions/ up to 1500² peak at 0.4-1.7 GiB of device memory
+# with it (the CLI's report on an NVIDIA H100).
+CHUNK_SIZE = 1 << 20
 MICHELSON_DENOMINATOR_EPSILON = 1e-4
 RELATIVE_MINIMUM_LUMINANCE_FRACTION = 1e-3
 
@@ -267,7 +275,7 @@ def render_section(
     from_col: int = 0,
     to_row: Optional[int] = None,
     to_col: Optional[int] = None,
-    chunk_size: int = 65536,
+    chunk_size: int = CHUNK_SIZE,
     sampling_mask_color: Optional[tuple] = None,
     progress: bool = False,
 ) -> RenderOutput:

@@ -9,6 +9,7 @@ LSB of the JAX writer's image of the JAX frame. Budgets are cut to 300
 nominal steps (600 Mino steps) and the sky sphere to r = 30.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -32,6 +33,15 @@ from torch_port_scenes import (
 )
 
 COLOR_TOL = 1e-8
+# The chunk of the chunked renders: the 16² frame's 256 rays make 8, and
+# the rays that overflow one event slot fall in several of them.
+CHUNK = 32
+TRANSLUCENT_CHECKER = """[objects.Disc.texture.Checker]
+beaming_exponent = 0.0
+width = 6.0
+height = 6.0
+color1 = [255, 120, 0, 128]
+color2 = [120, 40, 0, 128]"""
 FRAME = 16
 MAX_STEPS = 300
 MAX_RADIUS = 30.0
@@ -106,6 +116,61 @@ def test_render_section_with_supersampling_matches_jax(frames):
     np.testing.assert_array_equal(got.ray_class, ref.ray_class)
     np.testing.assert_allclose(got.color, ref.color, rtol=COLOR_TOL, atol=1e-12)
     assert got.stats["aa"].rays == int(ref.supersample_mask.sum()) * 16
+
+
+def _render_chunks(scene, chunk_size, monkeypatch):
+    """render_section of `scene` with `chunk_size`, and per traced chunk
+    (trt._trace_chunk's calls in order): its event slots, a key of each
+    ray's pixel coordinates, its rays' stop codes and steps."""
+    chunks = []
+    inner = trt._trace_chunk
+
+    def traced(scene, spec, row_f, col_f):
+        outs, lanes = inner(scene, spec, row_f, col_f)
+        coords = (row_f * 4 * FRAME + col_f).numpy()  # unique for the AA pass's quarter-pixel offsets
+        chunks.append((scene.integration.max_events, coords, outs[2].numpy(), outs[4].numpy()))
+        return outs, lanes
+
+    monkeypatch.setattr(trt, "_trace_chunk", traced)
+    out = trt.render_section(scene, chunk_size=chunk_size)
+    monkeypatch.undo()
+    return out, chunks
+
+
+@pytest.mark.parametrize("max_events", [8, 1])
+def test_chunks_match_one_chunk(kerr_bl, max_events, monkeypatch):
+    """trace_pixels_chunked with chunk_size=CHUNK: each pass of the 16²
+    frame in several chunks, each marched in two legs (fast_path._march)
+    and shaded on its own; with max_events=1 the rays that overflow their
+    one slot are re-traced chunk by chunk. Held against the same render
+    at the default chunk size, where each pass is one chunk."""
+    scene = kerr_bl[1]
+    if max_events == 1:
+        # The disc made translucent, so that a ray records every crossing
+        # (an opaque one stops at its first).
+        with open(KERR_BL_TOML) as f:
+            text = f.read().replace("[objects.Disc.texture.BlackBody]\nbeaming_exponent = 0.0", TRANSLUCENT_CHECKER)
+        opts = tcfg.RenderOptions(width=FRAME, height=FRAME, max_steps=MAX_STEPS, max_radius=MAX_RADIUS, **BL_CAMERA)
+        scene = tcfg.create_scene(tcfg.parse_config(text, REPO), opts, F64, CPU)
+        scene = dataclasses.replace(scene, integration=dataclasses.replace(scene.integration, max_events=1))
+    ref, ref_chunks = _render_chunks(scene, trt.CHUNK_SIZE, monkeypatch)
+    got, got_chunks = _render_chunks(scene, CHUNK, monkeypatch)
+    # One chunk: pass 1 and AA, each followed by one re-trace when rays
+    # overflowed; CHUNK: the re-traces of several chunks.
+    kinds = [c[0] for c in ref_chunks]
+    assert kinds == ([1, trt.OVERFLOW_MAX_EVENTS] * 2 if max_events == 1 else [8, 8])
+    retraces = sum(c[0] == trt.OVERFLOW_MAX_EVENTS for c in got_chunks)
+    assert retraces > 2 if max_events == 1 else retraces == 0
+    # The rays of each kind of trace, in the order they were traced.
+    for slots in set(kinds):
+        joined = [[np.concatenate(v) for v in zip(*(c[1:] for c in chunks if c[0] == slots))]
+                  for chunks in (ref_chunks, got_chunks)]
+        for r, g in zip(*joined):
+            np.testing.assert_array_equal(g, r)
+    assert got.supersample_mask.any()
+    np.testing.assert_array_equal(got.supersample_mask, ref.supersample_mask)
+    np.testing.assert_array_equal(got.ray_class, ref.ray_class)
+    np.testing.assert_allclose(got.color, ref.color, rtol=COLOR_TOL, atol=1e-12)
 
 
 def test_cli_png_matches_jax_writer(frames, tmp_path):
