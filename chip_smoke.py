@@ -26,7 +26,11 @@ non-zero on failure:
      lane reaches must be equal;
   6. the reverse sweep K2 against its plain version on the same rays, with
      seeded cotangents on the final state of escaped lanes and on event
-     slot 0 of hit lanes, float64 and float32;
+     slot 0 of hit lanes, float64 and float32; first K2's registers and
+     the SASS instructions of one re-forward and one reverse step
+     (sass_sweep_step), then with each comparison its critical path (its
+     lanes' reverse steps, and the kernel on its 128 longest lanes alone)
+     and issue share (as for K4 in phase 11 and K2 in phase 28);
   7. the gradient path: 10 steps of inverse.fit, the joint three-parameter
      fit of scripts/grad_scale_probe.py --fit3 (256², budget 2,000,
      float32, pyramid loss (4, 16), clip 1.0 ahead of Adam with the cosine
@@ -58,7 +62,8 @@ non-zero on failure:
  10. Schwarzschild through K3 at a = 0: the CLI `render` of the disc-only
      Schwarzschild scene of tests/test_golden_frames.py at 512×512;
  11. the BL reverse sweep K4 against its plain version on the BL fit
-     frame's checkpoints, with seeded cotangents, float64 and float32;
+     frame's checkpoints, with seeded cotangents, float64 and float32,
+     with phase 6's readings;
  12. the BL gradient path: the 12-step spin fit of
      scripts/grad_scale_probe.py --bl (kerr-bl.toml 128², nominal budget
      10,000, float32, target a = 0.45, start 0.30, Adam 3e-2); K3 and K4
@@ -87,6 +92,9 @@ non-zero on failure:
      slots, and, as a fault, those that overflowed the re-trace's 32 too,
      and the batch use and longest lane of each K5 launch and the frame's
      batch use;
+ 15b. kerr.toml at 1000² and kerr-volumetric-streaky at 500² rendered by
+     the CLI at --chunk-size 65,536 and at 2^20: each pair of frames must
+     be equal bit for bit;
  16. the BL volumetric path: the CLI `render` of
      kerr-bl-volumetric-streaky at 256×256 through K3 and K5 (the same K5
      figures); then phase 9's check of K3 at the main path's shape on its
@@ -147,8 +155,9 @@ non-zero on failure:
      hold sphere and disc events, each kind also past row 0;
  28. the reverse sweep K2 with the sphere payload against its plain
      version on that march's checkpoints, with seeded cotangents, float64
-     and float32 (phase 6's bars), its error printed apart for the lanes
-     whose slot 0 is a sphere and those whose slot 0 is a disc;
+     and float32 (phase 6's bars and readings), its error printed apart
+     for the lanes whose slot 0 is a sphere and those whose slot 0 is a
+     disc;
  29. the Kerr disc and sphere gradient path (the probe of
      tests/test_adjoint.py's sphere_loss_fn at 256²): image_loss must be 0
      at the target parameters; at a = 0.30, ∂a, ∂radius and ∂dth of the
@@ -834,14 +843,13 @@ def sphere_fit_scene(dtype):
     return scene, fast_path.scene_kernel_spec(scene), x, p
 
 
-def compare_march_ckpt(dtype, bl=False, attempts=None, sphere=False, k_ckpt=K_CKPT):
-    """K1 (K3 with `bl`) with checkpoints against its plain version on the
-    256² flagship fit frame (the BL fit frame; with `sphere`, the Kerr disc
-    and sphere frame) at its true parameters, both bounded by `attempts`
-    if given, with a checkpoint every `k_ckpt` steps. Outputs and the
-    checkpoint rows a lane reaches must be equal. Returns (result dict, the whole march's outputs with checkpoints (the
-    kernel's when `attempts` bounds the comparison), spec, the lanes' (E,
-    L_z, Q) or ())."""
+def ckpt_march_setup(dtype, bl=False, sphere=False, k_ckpt=K_CKPT):
+    """The checkpointed march of the 256² flagship fit frame at its true
+    parameters (the BL fit frame with `bl`, the Kerr disc and sphere frame
+    with `sphere`): (kernel, plain, args, kw, spec, consts), where
+    kernel(*args, **kw) runs K1 (K3) with a checkpoint every `k_ckpt`
+    steps, plain(*args, **kw) its plain version, and consts are the
+    lanes' (E, L_z, Q) on the BL frame, else ()."""
     import torch
 
     from gr_raytracer_tpu_torch.ops import geodesic_march as gm
@@ -867,6 +875,20 @@ def compare_march_ckpt(dtype, bl=False, attempts=None, sphere=False, k_ckpt=K_CK
         kernel, plain = gm.kerr_rk4_march, gm.march_plain
     args = (spec.radius, spec.a, spec.horizon_epsilon, y0.contiguous(), *consts)
     kw.update(discs=spec.discs, opaque_stop=True, ckpt_every=k_ckpt)
+    return kernel, plain, args, kw, spec, consts
+
+
+def compare_march_ckpt(dtype, bl=False, attempts=None, sphere=False, k_ckpt=K_CKPT):
+    """K1 (K3 with `bl`) with checkpoints against its plain version on the
+    256² flagship fit frame (the BL fit frame; with `sphere`, the Kerr disc
+    and sphere frame) at its true parameters, both bounded by `attempts`
+    if given, with a checkpoint every `k_ckpt` steps. Outputs and the
+    checkpoint rows a lane reaches must be equal. Returns (result dict, the whole march's outputs with checkpoints (the
+    kernel's when `attempts` bounds the comparison), spec, the lanes' (E,
+    L_z, Q) or ())."""
+    import torch
+
+    kernel, plain, args, kw, spec, consts = ckpt_march_setup(dtype, bl, sphere, k_ckpt)
     full = kernel(*args, **kw)
     torch.cuda.synchronize()
     kernel_ms, full = time_cuda(lambda: kernel(*args, **kw), reps=3)
@@ -903,15 +925,13 @@ def compare_march_ckpt(dtype, bl=False, attempts=None, sphere=False, k_ckpt=K_CK
     return res, (ref if attempts is None else full), spec, consts
 
 
-def compare_adjoint(dtype, march, spec, flops, consts=(), k_ckpt=K_CKPT):
-    """K2 (K4 when `consts` holds the lanes' (E, L_z, Q)) against its plain
-    version on the checkpoints of `march` (the fit frame's), with seeded
-    cotangents on the final state of escaped lanes and on event slot 0 of
-    hit lanes; every grad_ok lane is held. With spheres in `spec`, the
-    errors of the lanes whose slot 0 is a sphere and of those whose slot 0
-    is a disc are reported apart. `flops` holds count_sweep_flops's counts
-    (count_bl_sweep_flops's with `consts`); `k_ckpt` is the march's
-    checkpoint interval."""
+def sweep_inputs(dtype, march, spec, consts=(), k_ckpt=K_CKPT):
+    """The reverse sweep's inputs on the checkpoints of `march` (the fit
+    frame's), with seeded cotangents on the final state of escaped lanes
+    and on event slot 0 of hit lanes: (sweep, plain, args), where
+    sweep(*args) launches K2 (K4 when `consts` holds the lanes' (E, L_z,
+    Q)) and plain(*args) runs its plain version; args are (ckpt, ct_y,
+    ct_ev, steps, grad_ok, has_ev, ev_kind0, radius, a, *consts, cfg)."""
     import torch
 
     from gr_raytracer_tpu_torch.ops import geodesic_adjoint as gadj
@@ -931,9 +951,60 @@ def compare_adjoint(dtype, march, spec, flops, consts=(), k_ckpt=K_CKPT):
         sweep, plain = gadj.ks_march_bwd, gadj.ks_march_bwd_plain
     args = (ckpt, ct_y.contiguous(), ct_ev.contiguous(), steps, grad_ok, has_ev, kind0,
             spec.radius, spec.a, *consts, cfg)
+    return sweep, plain, args
+
+
+def sweep_critical_path(sweep, args):
+    """critical_path of a sweep launch: its lanes' reverse steps (steps on
+    grad_ok lanes), and the kernel on its TAIL_LANES longest alone."""
+    ckpt, per_lane, consts = args[0], args[1:7], args[9:-1]
+
+    def lanes_of(idx):
+        if idx is None:
+            return (ckpt, *per_lane, *consts)
+        return (ckpt[:, :, idx].contiguous(), *gather_lanes(per_lane + consts, idx))
+
+    def launch(ins):
+        return sweep(*ins[:7], *args[7:9], *ins[7:], args[-1])
+
+    steps, grad_ok = args[3], args[4]
+    return critical_path(launch, lanes_of, steps * (grad_ok != 0))
+
+
+def sweep_issue_share(args, ms, instructions):
+    """The share of the card's issue slots (132 SMs × 4 schedulers × 32
+    lanes × the SM clock) that a sweep launch of `ms` fills with the
+    common-path instructions of its steps (sass_sweep_step's re-forward
+    step plus reverse step, each taken once per step of a grad_ok lane).
+    Lanes idle in a diverged warp are not counted; a hit lane's payload
+    step is counted as a plain one."""
+    import torch
+
+    steps = float((args[3].long() * (args[4] != 0)).sum())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(nvidia_smi("clocks.max.sm")) * 1e6
+    return steps / (ms / 1e3) * instructions / (sms * 4 * 32 * clock_hz)
+
+
+def compare_adjoint(dtype, march, spec, flops, consts=(), k_ckpt=K_CKPT, sass=None):
+    """K2 (K4 when `consts` holds the lanes' (E, L_z, Q)) against its plain
+    version on the checkpoints of `march` (the fit frame's), with seeded
+    cotangents on the final state of escaped lanes and on event slot 0 of
+    hit lanes; every grad_ok lane is held. With spheres in `spec`, the
+    errors of the lanes whose slot 0 is a sphere and of those whose slot 0
+    is a disc are reported apart. `flops` holds count_sweep_flops's counts
+    (count_bl_sweep_flops's with `consts`); `k_ckpt` is the march's
+    checkpoint interval. The kernel's critical path is read too, and with
+    `sass` (sass_sweep_step's counts) its issue share."""
+    import torch
+
+    y_f, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, ckpt = march
+    sweep, plain, args = sweep_inputs(dtype, march, spec, consts, k_ckpt)
+    n, grad_ok, has_ev, kind0 = y_f.shape[0], args[4], args[5], args[6]
     got = sweep(*args)  # first launch: checks the kernel runs
     torch.cuda.synchronize()
     kernel_ms, got = time_cuda(lambda: sweep(*args), reps=3)
+    tail = sweep_critical_path(sweep, args)
     t0 = time.perf_counter()
     ref = plain(*args)
     torch.cuda.synchronize()
@@ -963,7 +1034,13 @@ def compare_adjoint(dtype, march, spec, flops, consts=(), k_ckpt=K_CKPT):
         "d_radius": [float(got[-2].double().sum()), float(ref[-2].double().sum())],
         "d_a": [float(got[-1].double().sum()), float(ref[-1].double().sum())],
         "d_radius_rel_err": rel(got[-2], ref[-2]), "d_a_rel_err": rel(got[-1], ref[-1]),
+        "critical_path": tail,
     }
+    build = sass.get("f32" if dtype == torch.float32 else "f64", {}) if sass else {}
+    if "reverse_step" in build:
+        per_step = build["reforward_step"] + build["reverse_step"]
+        res["sass_per_step"] = {"reforward": build["reforward_step"], "reverse": build["reverse_step"]}
+        res["issue_share"] = sweep_issue_share(args, kernel_ms, per_step)
     hit_kind = torch.where(has_ev != 0, kind0, -1)[ok_lanes]
     groups = {"sphere": [sp.kind for sp in spec.spheres], "disc": [d.kind for d in spec.discs]}
     hits = {g: torch.isin(hit_kind, torch.tensor(k, device=hit_kind.device)) for g, k in groups.items() if k}
@@ -1231,11 +1308,12 @@ def bl_fit_scene(dtype):
     return scene, fast_path.scene_kernel_spec(scene), x, p
 
 
-def cli_render(toml, size, camera, png, counters):
+def cli_render(toml, size, camera, png, counters, extra=()):
     """One CLI `render` (float32, the TOML's AA) into `png`. `counters` are
     (label, module, launch-counter name) triples, each counter set to 0
-    just before the render; returns (RenderOutput, seconds, {label:
-    (launches, ms from the launch timer)})."""
+    just before the render; `extra` are more CLI options. Returns
+    (RenderOutput, seconds, {label: (launches, ms from the launch
+    timer)})."""
     import torch
 
     from gr_raytracer_tpu_torch import cli
@@ -1244,7 +1322,7 @@ def cli_render(toml, size, camera, png, counters):
     for _, module, name, timer in timers:
         setattr(module, name, 0)
         setattr(module, timer, [])
-    argv = ["--width", str(size), "--height", str(size), *camera, "--max-steps", str(MAX_STEPS),
+    argv = ["--width", str(size), "--height", str(size), *camera, "--max-steps", str(MAX_STEPS), *extra,
             "-c", toml, "render", "--filename", png]
     t0 = time.perf_counter()
     out = cli.main(argv)
@@ -1410,26 +1488,38 @@ def k3_at_main_shape(toml, size, camera_kw, row_f, col_f, compared, attempts=Non
             "bit_identical": all(eq(g[at:at + n], r) for g, r in zip(got, ref))}
 
 
-def sass_k3_step(source="kerr_bl_march.cu", kernel="bl_march_kernel"):
-    """Instructions of `kernel` in the SASS of its built library (cuobjdump,
-    where the toolkit has it), in f32 and f64: the whole function, and one
-    iteration of its step loop along the common path, for each of its
-    builds (keyed by type and set template flags). The loop's backward
-    branches are those that span at least half the widest one's; a walk
-    from a backward branch's target takes every forward branch that stays
-    before it (they skip the event blocks, the checkpoint store and the
-    calls of the slow paths; the refill of a stopped lane lies past the
-    step's own backward branch), and the longest such walk is the step. It
-    counts every instruction issued, predicated ones too. Each count is
-    split into MUFU, conversions (F2I, I2F, FRND, F2F), calls (named by their
-    target) and the rest."""
+def _sass_classify(seq):
+    """An instruction count split into MUFU, conversions (F2I, I2F, FRND,
+    F2F), calls (named by their target) and the rest."""
+    import re
+
+    c = {"instructions": len(seq), "mufu": 0, "conversions": 0, "calls": {}}
+    for v in seq:
+        if v["op"].startswith("MUFU"):
+            c["mufu"] += 1
+        elif v["op"].split(".")[0] in ("F2I", "I2F", "FRND", "F2F", "I2FP", "F2IP"):
+            c["conversions"] += 1
+        elif v["op"].startswith("CALL"):
+            name = re.sub(r"^.*\$", "", v["args"].strip(" `()"))
+            c["calls"][name] = c["calls"].get(name, 0) + 1
+    return c
+
+
+def _sass_sections(source, kernel):
+    """{build key: (instructions, backward branches, walk)} of `kernel` in
+    the SASS of the library built from `source` (cuobjdump), one entry for
+    each of its builds (keyed by type and set template flags); None where
+    the toolkit has no cuobjdump. A backward branch is (span, target index,
+    index); walk(lo, hi, keep_tail) is the path from lo that takes every
+    forward branch whose target lies before the last keep_tail
+    instructions up to hi (None unless it reaches hi)."""
     import re
 
     from gr_raytracer_tpu_torch.ops import cuda_build
 
     tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
-        return {"cuobjdump": "not in the toolkit"}
+        return None
     lib = cuda_build._lib_path(source, cuda_build.NVCC_FLAGS)
     text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
     ins_re = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
@@ -1456,31 +1546,17 @@ def sass_k3_step(source="kerr_bl_march.cu", kernel="bl_march_kernel"):
                             "args": im.group(4)})
         by_addr = {v["addr"]: i for i, v in enumerate(ins)}
 
-        def target(v):
+        def target(v, labels=labels, by_addr=by_addr):
             lm = re.search(r"`\(([^)]+)\)", v["args"])
             if lm:
                 return labels.get(lm.group(1))
             hm = re.search(r"0x([0-9a-f]+)", v["args"])
             return by_addr.get(int(hm.group(1), 16)) if hm else None
 
-        def classify(seq):
-            c = {"instructions": len(seq), "mufu": 0, "conversions": 0, "calls": {}}
-            for v in seq:
-                if v["op"].startswith("MUFU"):
-                    c["mufu"] += 1
-                elif v["op"].split(".")[0] in ("F2I", "I2F", "FRND", "F2F", "I2FP", "F2IP"):
-                    c["conversions"] += 1
-                elif v["op"].startswith("CALL"):
-                    name = re.sub(r"^.*\$", "", v["args"].strip(" `()"))
-                    c["calls"][name] = c["calls"].get(name, 0) + 1
-            return c
-
         backs = [(i - t, t, i) for i, v in enumerate(ins)
                  if v["op"].startswith("BRA") and (t := target(v)) is not None and t < i]
 
-        def walk(lo, hi):
-            """The path from lo that takes every forward branch up to hi;
-            None unless it reaches hi."""
+        def walk(lo, hi, keep_tail=0, ins=ins, target=target):
             path, pc = [], lo
             while lo <= pc <= hi and len(path) < len(ins):
                 v = ins[pc]
@@ -1488,7 +1564,7 @@ def sass_k3_step(source="kerr_bl_march.cu", kernel="bl_march_kernel"):
                 if pc == hi:
                     return path
                 t = target(v) if v["op"].startswith("BRA") else None
-                if t is not None and pc < t <= hi:
+                if t is not None and pc < t <= hi - keep_tail:
                     pc = t
                     continue
                 if t is not None and v["pred"] is None:
@@ -1496,14 +1572,82 @@ def sass_k3_step(source="kerr_bl_march.cu", kernel="bl_march_kernel"):
                 pc += 1
             return None
 
-        entry = classify(ins)
+        out[("f32" if m.group(1) == "f" else "f64") + flags] = (ins, backs, walk)
+    return out
+
+
+def sass_k3_step(source="kerr_bl_march.cu", kernel="bl_march_kernel"):
+    """Instructions of `kernel` in the SASS of its built library (cuobjdump,
+    where the toolkit has it), in f32 and f64: the whole function, and one
+    iteration of its step loop along the common path, for each of its
+    builds (keyed by type and set template flags). The loop's backward
+    branches are those that span at least half the widest one's; a walk
+    from a backward branch's target takes every forward branch that stays
+    before it (they skip the event blocks, the checkpoint store and the
+    calls of the slow paths; the refill of a stopped lane lies past the
+    step's own backward branch), and the longest such walk is the step. It
+    counts every instruction issued, predicated ones too. Each count is
+    split into MUFU, conversions (F2I, I2F, FRND, F2F), calls (named by their
+    target) and the rest."""
+    sections = _sass_sections(source, kernel)
+    if sections is None:
+        return {"cuobjdump": "not in the toolkit"}
+    out = {}
+    for key, (ins, backs, walk) in sections.items():
+        entry = _sass_classify(ins)
         if backs:
             # The loop's back edges (the step's, and the refilled lane's)
             # span most of the function; the step's walk is the longest.
             widest = max(backs)[0]
             paths = [p for span, t, i in backs if 2 * span >= widest and (p := walk(t, i))]
-            entry["loop"] = {"span": widest + 1, "common_path": classify(max(paths, key=len, default=[]))}
-        out[("f32" if m.group(1) == "f" else "f64") + flags] = entry
+            entry["loop"] = {"span": widest + 1, "common_path": _sass_classify(max(paths, key=len, default=[]))}
+        out[key] = entry
+    return out
+
+
+# sass_sweep_step: a forward branch to the last this many instructions of a
+# loop ends its body (a `continue` past a step whose state is not finite,
+# the skip of a re-forward step on such a state) and is not taken.
+SWEEP_LATCH = 12
+
+
+def sass_sweep_step(source, kernel, directions):
+    """Instructions of one step of a reverse sweep (K2, K4) in its SASS,
+    in f32 and f64, along the common path (a walk as sass_k3_step's, which
+    keeps the branches that skip a step's whole body: SWEEP_LATCH). The
+    sweep's loops nest: a lane's segments (the widest loop), in each the
+    re-forward loop and then the reverse loop, whose step may hold a loop
+    of its own over `directions` dual evaluations (a sweep that forms
+    the step's Jacobian a column at a time), counted that many times; a
+    sweep whose common path holds no such loop takes 1. Returns, per build, the
+    instructions of one re-forward step and of one reverse step, and every
+    loop (span, common path, depth)."""
+    sections = _sass_sections(source, kernel)
+    if sections is None:
+        return {"cuobjdump": "not in the toolkit"}
+    out = {}
+    for key, (ins, backs, walk) in sections.items():
+        loops = []
+        for span, t, i in sorted(backs, key=lambda b: b[1]):
+            path = walk(t, i, SWEEP_LATCH)
+            depth = sum(1 for s2, t2, i2 in backs if t2 <= t and i <= i2 and (t2, i2) != (t, i))
+            loops.append({"first": t, "last": i, "span": span + 1, "depth": depth,
+                          "common_path": len(path) if path else None})
+        entry = {"instructions": len(ins), "loops": [{k: v for k, v in lp.items() if k not in ("first", "last")}
+                                                     for lp in loops]}
+        outer = max(loops, key=lambda lp: lp["span"], default=None)
+        inner = lambda lp: [c for c in loops if lp["first"] <= c["first"] and c["last"] <= lp["last"] and c is not lp]
+        if outer is not None:
+            kids = [c for c in inner(outer) if not any(c in inner(o) for o in inner(outer))]
+            if len(kids) >= 2 and all(c["common_path"] for c in kids[:2]):
+                fwd, rev = kids[0], kids[-1]
+                step = rev["common_path"]
+                if directions > 1:
+                    kids_rev = [c for c in inner(rev) if not any(c in inner(o) for o in inner(rev))]
+                    step += (directions - 1) * sum(c["common_path"] or 0 for c in kids_rev)
+                entry["reforward_step"] = fwd["common_path"]
+                entry["reverse_step"] = step
+        out[key] = entry
     return out
 
 
@@ -1604,6 +1748,29 @@ def nan_lanes_report(limit=20):
                 "y_final": [float(v) for v in res[0][inverse][i].double().tolist()],
             })
     return {"nan_lanes": len(lanes), "lanes": lanes[:limit]}
+
+
+def chunk_size_phase():
+    """Phase 15b: kerr.toml at 1000² and kerr-volumetric-streaky at 500²
+    rendered by the CLI at --chunk-size 65,536 and at 2^20 (the default:
+    each frame's pass one chunk); each pair of frames must be equal bit
+    for bit."""
+    import numpy as np
+
+    res = {}
+    for name, toml, size in (("kerr.toml", KERR_TOML, FRAME), ("kerr-volumetric-streaky", VOL_TOML, VOL_FRAME)):
+        frames = {}
+        for chunk in (65_536, 1 << 20):
+            with tempfile.TemporaryDirectory() as tmp:
+                out, secs, _ = cli_render(toml, size, CAMERA, os.path.join(tmp, "frame.png"), (),
+                                          extra=("--chunk-size", str(chunk)))
+            frames[chunk] = (out.color, secs)
+        a, b = frames[65_536][0], frames[1 << 20][0]
+        same = (a == b) | (np.isnan(a) & np.isnan(b))
+        res[name] = {"frame": f"{size}x{size}", "pixels_differing": int((~same.all(axis=-1)).sum()),
+                     "s_chunk_65536": frames[65_536][1], "s_chunk_2^20": frames[1 << 20][1]}
+    res["ok"] = all(r["pixels_differing"] == 0 for r in res.values())
+    return res
 
 
 def bl_fit_phase():
@@ -2654,20 +2821,15 @@ def sphere_gradient_check():
     return res
 
 
-def sphere_gradient_phases():
+def sphere_gradient_phases(k2_sass=None):
     """Phases 27-29: K1 with checkpoints and sphere events against its
     plain version, K2 with the sphere payload against its plain version
     (both with a checkpoint every SPHERE_K_CKPT steps, so that lanes
     reach later rows), and the Kerr disc and sphere gradient: its value
-    against a central difference, then the 10-step spin fit; returns (K2's
-    comparisons by dtype, the fit's summary)."""
-    import math
-
+    against a central difference, then the 10-step spin fit (sphere_fit);
+    `k2_sass` are phase 6's SASS counts of K2. Returns (K2's comparisons
+    by dtype, the fit's summary)."""
     import torch
-
-    from gr_raytracer_tpu_torch import inverse
-    from gr_raytracer_tpu_torch.ops import geodesic_adjoint as gadj
-    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
 
     phase("27. K1 with checkpoints and sphere events against its plain version")
     marches, sweeps = {}, {}
@@ -2687,7 +2849,7 @@ def sphere_gradient_phases():
     print(f"flops per ray of the sweep (re-forward step, reverse step, payload at the stored step; counted): "
           f"{json.dumps(sweep_flops)}")
     for dtype in (torch.float64, torch.float32):
-        r = compare_adjoint(dtype, marches[dtype], spec, sweep_flops, k_ckpt=SPHERE_K_CKPT)
+        r = compare_adjoint(dtype, marches[dtype], spec, sweep_flops, k_ckpt=SPHERE_K_CKPT, sass=k2_sass)
         r["chunk"] = "kerr-sphere 256²"
         sweeps[dtype] = r
         print(json.dumps(r), flush=True)
@@ -2702,6 +2864,22 @@ def sphere_gradient_phases():
     print(json.dumps({"gradient_check": check}), flush=True)
     if not check["ok"]:
         fail(f"the sphere gradient is not 0-loss at its target or disagrees with a central difference: {check}")
+    fit = sphere_fit()
+    return sweeps, fit
+
+
+def sphere_fit():
+    """Phase 29's spin fit: 10 steps of inverse.fit of the spin on the 256²
+    Kerr disc and sphere frame in float32 (target a = 0.499, start 0.30,
+    image_loss, Adam 5e-2); returns its summary."""
+    import math
+
+    import torch
+
+    from gr_raytracer_tpu_torch import inverse
+    from gr_raytracer_tpu_torch.ops import geodesic_adjoint as gadj
+    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+
     dt = torch.float32
     sphere_render, as_params = sphere_renderer(dt)
 
@@ -2753,7 +2931,7 @@ def sphere_gradient_phases():
         fail(f"the sphere fit launched K1 {k1_launches} and K2 {k2_launches} times")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         fail(f"the sphere fit's loss did not fall: {losses}")
-    return sweeps, fit
+    return fit
 
 
 def compare_resume(bl):
@@ -2952,9 +3130,11 @@ def main():
     sweep_flops = count_sweep_flops()
     print(f"flops per ray of the sweep (re-forward step, reverse step, payload at the stored step; counted): "
           f"{json.dumps(sweep_flops)}")
+    k2_sass = sass_sweep_step("kerr_ks_adjoint.cu", "adjoint_kernel", 1)
+    print(json.dumps({"k2_ptxas": registers.get("kerr_ks_adjoint.cu"), "k2_sass": k2_sass}), flush=True)
     sweeps = {}
     for dtype in (torch.float64, torch.float32):
-        r = compare_adjoint(dtype, marches[dtype], fit_spec, sweep_flops)
+        r = compare_adjoint(dtype, marches[dtype], fit_spec, sweep_flops, sass=k2_sass)
         sweeps[dtype] = r
         print(json.dumps(r), flush=True)
         if not r["ok"]:
@@ -3043,9 +3223,11 @@ def main():
     bl_sweep_flops = count_bl_sweep_flops()
     print(f"flops per ray of the BL sweep (re-forward step, reverse step, payload at the stored step; counted): "
           f"{json.dumps(bl_sweep_flops)}")
+    k4_sass = sass_sweep_step("kerr_bl_adjoint.cu", "bl_adjoint_kernel", 1)
+    print(json.dumps({"k4_ptxas": registers.get("kerr_bl_adjoint.cu"), "k4_sass": k4_sass}), flush=True)
     bl_sweeps = {}
     for dtype in (torch.float64, torch.float32):
-        r = compare_adjoint(dtype, bl_marches[dtype], bl_spec, bl_sweep_flops, bl_consts[dtype])
+        r = compare_adjoint(dtype, bl_marches[dtype], bl_spec, bl_sweep_flops, bl_consts[dtype], sass=k4_sass)
         bl_sweeps[dtype] = r
         print(json.dumps(r), flush=True)
         if not r["ok"]:
@@ -3092,6 +3274,12 @@ def main():
         vol_main = vol_frame_summary(out, png, VOL_FRAME, total_s, ran, "kerr-volumetric-streaky", vol_ops,
                                      marched.batch_use())
     print(json.dumps(vol_main), flush=True)
+
+    phase("15b. Kerr-Schild frames at two chunk sizes")
+    chunks = chunk_size_phase()
+    print(json.dumps({"chunk_size": chunks}), flush=True)
+    if not chunks["ok"]:
+        fail(f"a frame differs between --chunk-size 65536 and 2^20: {chunks}")
 
     phase("16. BL volumetric path: CLI render of kerr-bl-volumetric-streaky")
     with tempfile.TemporaryDirectory() as tmp:
@@ -3160,7 +3348,7 @@ def main():
     sphere_renders = sphere_render_phases()
     k3_tables.update({name: r["k3_launch_table"] for name, r in sphere_renders.items() if "k3_launch_table" in r})
     f64_gradient_phase(vol_fit)
-    sphere_sweeps, sphere_fit = sphere_gradient_phases()
+    sphere_sweeps, sphere_fit = sphere_gradient_phases(k2_sass)
     resumed = resume_phase()
 
     phase("31. the cost of -fmad=false: K5 and K7 built with FMA contraction")
@@ -3213,8 +3401,16 @@ def main():
         "launches": fit["k2_launches"] + sphere_fit["k2_launches"],
         "launches_by_path": {"fit": fit["k2_launches"], "fit_kerr_sphere": sphere_fit["k2_launches"]},
         "max_abs_err": max(sweep["max_abs_err"], sphere_sweeps[torch.float32]["max_abs_err"]),
+        "registers": registers.get("kerr_ks_adjoint.cu"),
+        "sass_per_step": {k: {"reforward": v.get("reforward_step"), "reverse": v.get("reverse_step")}
+                          for k, v in k2_sass.items() if isinstance(v, dict)},
+        "issue_share": {"fit": sweep.get("issue_share"),
+                        "disc_sphere": sphere_sweeps[torch.float32].get("issue_share")},
+        "critical_path": {"fit": sweep["critical_path"],
+                          "disc_sphere": sphere_sweeps[torch.float32]["critical_path"]},
         "sphere_payload": [{"chunk": r["chunk"], "dtype": r["dtype"], **{k: r[k] for k in (
-            "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "lanes_within_tol", "by_slot0_kind")}}
+            "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "lanes_within_tol", "by_slot0_kind",
+            "critical_path")}}
             for r in sphere_sweeps.values()],
         "ms": sweep["kernel_ms"],
         "plain_ms": sweep["plain_ms"],
@@ -3258,6 +3454,12 @@ def main():
         "replaces": "gr_raytracer_tpu/ops/geodesic_adjoint.py:739",
         "launches": bl_fit["k4_launches"],
         "max_abs_err": bl_sweep["max_abs_err"],
+        "registers": registers.get("kerr_bl_adjoint.cu"),
+        "sass_per_step": {k: {"reforward": v.get("reforward_step"), "reverse": v.get("reverse_step")}
+                          for k, v in k4_sass.items() if isinstance(v, dict)},
+        "issue_share": bl_sweep.get("issue_share"),
+        "critical_path": bl_sweep["critical_path"],
+        "ms_f64": bl_sweeps[torch.float64]["kernel_ms"],
         "ms": bl_sweep["kernel_ms"],
         "plain_ms": bl_sweep["plain_ms"],
         "bound_ms": bl_sweep["bound_ms"],

@@ -12,7 +12,7 @@
 // The plain torch versions of these functions are in
 // ops/geodesic_march.py (_bl_rhs, _bl_momentum, _bl_embed3, _bl_step_size,
 // _bl_rk4_delta) and ops/geodesic_adjoint.py (_bl_masked_step,
-// _bl_disc_payload); the order of every operation is theirs.
+// _bl_disc_payload, _bl_rhs_vjp); the order of every operation is theirs.
 
 #pragma once
 
@@ -58,10 +58,11 @@ __device__ __forceinline__ MinoConsts<S> mino_consts(S a, S e, S l_z, S q) {
 }
 
 // Mino-time dy/dλ for components 0..5 (6 and 7 are 0), given st, ct =
-// sin θ, cos θ of y. The reciprocals 1/Δ, 1/sin²θ and 1/sin³θ share one
-// divide, 1/(Δ·sin²θ). At a pole the result is not finite, and the march
-// stops the lane NAN (_bl_rhs, whose products −2·a·a·E·E·cosθ·sinθ and
-// 2·L_z·L_z·cosθ/sin³θ begin with C.th_a and C.th_l).
+// sin θ, cos θ of y (its reverse mode is mino_rhs_vjp below). The
+// reciprocals 1/Δ, 1/sin²θ and 1/sin³θ share one divide, 1/(Δ·sin²θ). At
+// a pole the result is not finite, and the march stops the lane NAN
+// (_bl_rhs, whose products −2·a·a·E·E·cosθ·sinθ and 2·L_z·L_z·cosθ/sin³θ
+// begin with C.th_a and C.th_l).
 template <typename S>
 __device__ __forceinline__ void mino_rhs(S r_s, S a, S e, S l_z, const MinoConsts<S>& C, const S* y,
                                          S st, S ct, S* out) {
@@ -79,6 +80,71 @@ __device__ __forceinline__ void mino_rhs(S r_s, S a, S e, S l_z, const MinoConst
   out[4] = S(0.5) * (S(4) * r * e * p_r - (S(2) * r - r_s) * C.carter);
   const S inv_st3 = st * inv_sin2 * inv_sin2;
   out[5] = S(0.5) * (C.th_a * ct * st + C.th_l * ct * inv_st3);
+}
+
+// The VJP of mino_rhs along the cotangents ob0, ob3, ob4, ob5 of its
+// components 0, 3, 4, 5 (1 and 2 are v_r and v_θ, whose cotangents pass
+// to them unchanged): returns r̄, sin θ̄ and cos θ̄ of the stage, and adds
+// the stage's r̄_s, ā, Ē, L̄_z and the bars of the lane terms to the
+// accumulators (ops/geodesic_adjoint.py _bl_rhs_vjp, line for line).
+template <typename T>
+__device__ __forceinline__ void mino_rhs_vjp(T r_s, T a, T e, T l_z, const MinoConsts<T>& C, T r, T st,
+                                             T ct, T ob0, T ob3, T ob4, T ob5, T& r_b, T& st_b, T& ct_b,
+                                             T& rs_acc, T& a_acc, T& e_acc, T& lz_acc,
+                                             MinoConsts<T>& Cb) {
+  // Forward.
+  const T delta = r * r - r_s * r + C.a2;
+  const T big_a = r * r + C.a2;
+  const T p_r = big_a * e - C.a_lz;
+  const T sin2 = st * st;
+  const T inv_ds = T(1) / (delta * sin2);
+  const T inv_delta = inv_ds * sin2;
+  const T inv_sin2 = inv_ds * delta;
+  const T b0 = big_a * inv_delta;
+  const T w = l_z - C.a_e * sin2;
+  const T ai = a * inv_delta;
+  const T inv_st3 = st * inv_sin2 * inv_sin2;
+  const T four_re = T(4) * r * e;
+  // Backward.
+  const T b0_b = ob0 * p_r;
+  T p_r_b = ob0 * b0 + ob3 * ai;
+  const T w_b = ob0 * a;
+  const T ai_b = ob3 * p_r;
+  a_acc = a_acc + (ob0 * w + ai_b * inv_delta);
+  const T inv_delta_b = ai_b * a + b0_b * big_a;
+  T big_a_b = b0_b * inv_delta;
+  lz_acc = lz_acc + (w_b + ob3 * inv_sin2);
+  T inv_sin2_b = ob3 * l_z;
+  Cb.a_e = Cb.a_e + (-ob3 - w_b * sin2);
+  T sin2_b = -w_b * C.a_e;
+  const T x4 = T(0.5) * ob4;
+  p_r_b = p_r_b + x4 * four_re;
+  const T four_re_b = x4 * p_r;
+  r_b = T(4) * e * four_re_b - T(2) * x4 * C.carter;
+  T e_b = T(4) * r * four_re_b;
+  rs_acc = rs_acc + x4 * C.carter;
+  Cb.carter = Cb.carter - x4 * (T(2) * r - r_s);
+  const T x5 = T(0.5) * ob5;
+  Cb.th_a = Cb.th_a + x5 * ct * st;
+  Cb.th_l = Cb.th_l + x5 * ct * inv_st3;
+  ct_b = x5 * (C.th_a * st + C.th_l * inv_st3);
+  st_b = x5 * C.th_a * ct;
+  const T inv_st3_b = x5 * C.th_l * ct;
+  st_b = st_b + inv_st3_b * inv_sin2 * inv_sin2;
+  inv_sin2_b = inv_sin2_b + T(2) * inv_st3_b * st * inv_sin2;
+  const T inv_ds_b = inv_sin2_b * delta + inv_delta_b * sin2;
+  T delta_b = inv_sin2_b * inv_ds;
+  sin2_b = sin2_b + inv_delta_b * inv_ds;
+  const T prod_b = -inv_ds * inv_ds * inv_ds_b;
+  delta_b = delta_b + prod_b * sin2;
+  sin2_b = sin2_b + prod_b * delta;
+  st_b = st_b + T(2) * st * sin2_b;
+  big_a_b = big_a_b + p_r_b * e;
+  e_acc = e_acc + (e_b + p_r_b * big_a);
+  Cb.a_lz = Cb.a_lz - p_r_b;
+  r_b = r_b + T(2) * r * big_a_b + delta_b * (T(2) * r - r_s);
+  rs_acc = rs_acc - delta_b * r;
+  Cb.a2 = Cb.a2 + (big_a_b + delta_b);
 }
 
 // p^μ = (1/Σ)(dt/dλ, v_r, v_θ, dφ/dλ); each reciprocal is its own divide

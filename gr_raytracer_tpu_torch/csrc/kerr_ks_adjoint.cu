@@ -18,21 +18,30 @@
 // block's max(steps); gating per lane on seg·K < steps is equivalent,
 // because an inactive step is the identity on λ with zero partials.
 //
-// The step VJP is built from forward-mode dual numbers: G is templated on
-// its scalar type, and each reverse step evaluates it ten times in
-// Dual<T>, seeded with the eight state directions, radius and a. Column j
-// of the Jacobian contracts with the cotangents:
-//     λ_new_j = Σ_i λ_i ∂y_new_i/∂y_j + Σ_m ct_m ∂payload_m/∂y_j,
-// and the same contraction along radius and a gives the per-step
-// partials. Exact to rounding, and about twenty times a forward step per
-// reverse step: a hand-written reverse-mode step is the lever for later.
+// The step VJP is written by hand in reverse mode (step_vjp): a forward
+// pass keeps the stage slopes k1..k3 in registers (the stage inputs
+// y + c·h·k are rebuilt from them, bit for bit), then one backward pass
+// takes the RK4 combination δ = h/6·(k1 + 2k2 + 2k3 + k4), each stage's
+// y + c·h·k, the right-hand side at each stage (rhs_vjp: rhs's lines, which
+// already hold ∂H/∂x, walked in reverse), the far-field lever and the step
+// size h(r, r₊(radius, a)). A reverse step so costs about a forward step
+// and four right-hand-side VJPs, where the dual-number columns it replaces
+// evaluated the whole step ten times. t enters no line of the step, so
+// its λ passes through.
 //
-// What bounds it on the card: operations (each reverse step costs ten dual
-// step evaluations against a few hundred bytes of scratch traffic).
+// What bounds it on the card: the longest lanes. One thread walks a
+// lane's whole reverse chain, so a launch lasts as long as its longest
+// lane's re-forward and reverse steps; the work of a step is now a few
+// forward steps, against a few hundred bytes of scratch traffic.
 //
 // The payload is evaluated only at the step that stored slot 0 (the lane's
-// last), where its cotangent enters: the disc payload, or the sphere
-// payload when the slot-0 kind is a sphere's (or the scene has no disc).
+// last, peeled off ahead of the reverse loop), where its cotangent enters:
+// the disc payload, or the sphere payload when the slot-0 kind is a
+// sphere's (or the scene has no disc). That one step a hit lane keeps the
+// forward-mode dual numbers: G is templated on its scalar type and
+// evaluated ten times in Dual<T>, seeded with the eight state directions,
+// radius and a, and each Jacobian column contracts with the cotangents:
+//     λ_new_j = Σ_i λ_i ∂y_new_i/∂y_j + Σ_m ct_m ∂payload_m/∂y_j.
 // The sphere payload replays the march's crossing (sphere_events.cuh) with
 // the JAX VJP's guards: sqrt(max(disc, 1e-30)), |a| > 1e-30, the + root
 // where it lies in [0, 1] (a choice on values), cos θ clipped by a select
@@ -42,14 +51,18 @@
 // the replayed crossing sees the forward's constants.
 //
 // Conventions of the JAX VJP kept here: masks are selects (the untaken
-// branch gets no derivative); the payload guards (|dz| ≥ 1e-12, the
-// sqrt(max(·, 1e-30)) guards, disc bounds selected by the slot-0 kind);
-// a lane whose state is not finite passes λ through; the payload
-// cotangent enters only at the lane's last step on lanes with an event;
-// the trust region on every λ component and both per-step partials, and
-// once on the incoming cotangent (the TPU kernel applies it also on steps
-// where the lane is inactive). Partials are written per lane, without
-// atomics, so the result is deterministic; the wrapper sums them.
+// branch gets no derivative); r₊'s sqrt and the far-field speed are
+// guarded by max(·, 1e-30) in the differentiated step (the march and the
+// re-forward use 0 and no guard, the same values on every real lane); a
+// tie in nmax/nmin splits the tangent half and half (d_max, d_min); the
+// payload guards (|dz| ≥ 1e-12, the sqrt(max(·, 1e-30)) guards, disc
+// bounds selected by the slot-0 kind); a lane whose state is not finite
+// passes λ through; the payload cotangent enters only at the lane's last
+// step on lanes with an event; the trust region on every λ component and
+// both per-step partials, and once on the incoming cotangent (the TPU
+// kernel applies it also on steps where the lane is inactive). Partials
+// are written per lane, without atomics, so the result is deterministic;
+// the wrapper sums them.
 
 #include "kerr_ks_common.cuh"
 #include "sphere_events.cuh"
@@ -187,6 +200,172 @@ __device__ __forceinline__ void step_map(const AdjParams<T>& P, S radius, S a, c
   for (int i = 0; i < 3; ++i) payload[9 + i] = y_new[1 + i] - y[1 + i];
 }
 
+// The terms of the differentiated step that depend on the lane alone: r₊
+// with its guarded sqrt (its value is the march's on every sub-extremal
+// spin) and the pieces its VJP needs.
+template <typename T>
+struct StepTerms {
+  T m, z_rp, s_rp, r_plus;
+};
+
+template <typename T>
+__device__ __forceinline__ StepTerms<T> step_terms(T radius, T a) {
+  StepTerms<T> S;
+  S.m = T(0.5) * radius;
+  S.z_rp = S.m * S.m - a * a;
+  S.s_rp = sqrt_(nmax(S.z_rp, T(1e-30)));
+  S.r_plus = S.m + S.s_rp;
+  return S;
+}
+
+// The VJP of one step y ↦ y_new (rk4_delta<true>, no payload) along λ,
+// in reverse mode: out[0..7] = λ_new, out[8] = ∂radius, out[9] = ∂a
+// (ops/geodesic_adjoint.py ks_step_vjp, line for line).
+template <typename T>
+__device__ __forceinline__ void step_vjp(const AdjParams<T>& P, const StepTerms<T>& S, const T* y,
+                                         const T* lam, T* out) {
+  const T radius = P.radius, a = P.a;
+  const StepRule<T>& R = P.rule;
+  // Forward: the step with its stage slopes k1..k3 kept.
+  const T r_here = ks_radius(a, y[1], y[2], y[3]);
+  const T g_raw = (r_here - S.r_plus) / R.r_ref;
+  T h = R.h0 * clip(g_raw, R.h_min_frac, T(1));
+  T k1[8], k2[8], k3[8], tmp[8], kb[8], tb[8];
+  rhs(radius, a, y, k1);
+  bool far = false;
+  T rho = T(0), speed2 = T(0), speed = T(0), a1 = T(0), a2 = T(0), den = T(1), h_far = T(0), h_base = h;
+  if (R.r_safe > T(0)) {
+    rho = sqrt_(y[1] * y[1] + y[2] * y[2] + y[3] * y[3]);
+    speed2 = k1[1] * k1[1] + k1[2] * k1[2] + k1[3] * k1[3];
+    speed = sqrt_(nmax(speed2, T(1e-30)));
+    const bool outward = (y[1] * k1[1] + y[2] * k1[2] + y[3] * k1[3]) > T(0);
+    a1 = T(0.5) * (rho - R.r_safe);
+    a2 = T(0.125) * rho;
+    den = nmax(speed, T(1e-12));
+    h_far = nmin(a1, a2) / den;
+    far = outward && rho > R.r_safe;
+    if (far) h = nmax(h, h_far);
+  }
+  const T half_h = T(0.5) * h;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) tmp[i] = y[i] + half_h * k1[i];
+  rhs(radius, a, tmp, k2);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) tmp[i] = y[i] + half_h * k2[i];
+  rhs(radius, a, tmp, k3);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) tmp[i] = y[i] + h * k3[i];
+  rhs(radius, a, tmp, kb);  // k4
+  const T h6 = h / T(6);
+  // Backward: δ = h/6·(k1 + 2k2 + 2k3 + k4), y_new = y + δ.
+  T h6_b = T(0);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    h6_b = h6_b + lam[i] * (k1[i] + T(2) * k2[i] + T(2) * k3[i] + kb[i]);
+    out[i] = lam[i];
+  }
+  T h_b = h6_b / T(6), rb = T(0), ab = T(0);
+  // Stage 4 at y + h·k3 (tmp), with k̄4 = h/6·λ.
+#pragma unroll
+  for (int i = 0; i < 8; ++i) kb[i] = h6 * lam[i];
+  rhs_vjp(radius, a, tmp, kb, tb, rb, ab);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    out[i] = out[i] + tb[i];
+    h_b = h_b + tb[i] * k3[i];
+    kb[i] = T(2) * (h6 * lam[i]) + h * tb[i];
+    tmp[i] = y[i] + half_h * k2[i];
+  }
+  // Stage 3 at y + h/2·k2.
+  rhs_vjp(radius, a, tmp, kb, tb, rb, ab);
+  T half_b = T(0);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    out[i] = out[i] + tb[i];
+    half_b = half_b + tb[i] * k2[i];
+    kb[i] = T(2) * (h6 * lam[i]) + half_h * tb[i];
+    tmp[i] = y[i] + half_h * k1[i];
+  }
+  // Stage 2 at y + h/2·k1.
+  rhs_vjp(radius, a, tmp, kb, tb, rb, ab);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    out[i] = out[i] + tb[i];
+    half_b = half_b + tb[i] * k1[i];
+    kb[i] = h6 * lam[i] + half_h * tb[i];
+  }
+  h_b = h_b + T(0.5) * half_b;
+  // The far-field lever: h = max(h0·clip(·), h_far) on an outward lane
+  // beyond r_safe, h_far = min(½(ρ − r_safe), ρ/8) / max(|v|, 1e-12).
+  if (far) {
+    const T w = d_max(h_base, h_far);
+    const T hf_b = (T(1) - w) * h_b;
+    h_b = w * h_b;
+    const T num_b = hf_b / den;
+    const T den_b = -hf_b * h_far / den;
+    const T wm = d_min(a1, a2);
+    const T rho_b = T(0.5) * wm * num_b + T(0.125) * (T(1) - wm) * num_b;
+    const T speed_b = den_b * d_max(speed, T(1e-12));
+    const T speed2_b = speed_b / (T(2) * speed) * d_max(speed2, T(1e-30));
+#pragma unroll
+    for (int i = 1; i < 4; ++i) {
+      kb[i] = kb[i] + T(2) * k1[i] * speed2_b;
+      out[i] = out[i] + y[i] / rho * rho_b;
+    }
+  }
+  // Stage 1 at y.
+  rhs_vjp(radius, a, y, kb, tb, rb, ab);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = out[i] + tb[i];
+  // h0·clip((r − r₊)/r_ref, h_min_frac, 1), r the Kerr-Schild radius of y.
+  const T g_b = R.h0 * h_b * d_clip(g_raw, R.h_min_frac, T(1));
+  const T rh_b = g_b / R.r_ref;
+  ks_radius_vjp(a, y[1], y[2], y[3], rh_b, out + 1, ab);
+  // r₊ = m + sqrt(max(m² − a², 1e-30)), m = radius/2.
+  const T z_b = -rh_b / (T(2) * S.s_rp) * d_max(S.z_rp, T(1e-30));
+  ab = ab - T(2) * a * z_b;
+  rb = rb + T(0.5) * (-rh_b + T(2) * S.m * z_b);
+  out[8] = rb;
+  out[9] = ab;
+}
+
+// The VJP of the payload step (the lane's last on a hit lane) from ten
+// dual evaluations of G: out as step_vjp's.
+template <typename T>
+__device__ __forceinline__ void payload_step_vjp(const AdjParams<T>& P, const T* yg, const T* lam,
+                                              const T* ct_p, int kind0, T* out) {
+  for (int j = 0; j < 10; ++j) {
+    Dual<T> yd[8], yn[8], pl[kEventWidth];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) yd[i] = Dual<T>(yg[i], i == j ? T(1) : T(0));
+    const Dual<T> rd(P.radius, j == 8 ? T(1) : T(0));
+    const Dual<T> ad(P.a, j == 9 ? T(1) : T(0));
+    step_map(P, rd, ad, yd, kind0, true, yn, pl);
+    T acc = T(0);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc = acc + lam[i] * yn[i].d;
+#pragma unroll
+    for (int q = 0; q < kEventWidth; ++q) acc = acc + ct_p[q] * pl[q].d;
+    out[j] = acc;
+  }
+}
+
+// A reverse step's result under the trust region: λ and the partials move
+// on when every entry of `out` lies inside it; else λ is zeroed and the
+// step's partials dropped.
+template <typename T>
+__device__ __forceinline__ void take_step(const T* out, T* lam, T& dr, T& da, T cap) {
+  bool trust = true;
+#pragma unroll
+  for (int j = 0; j < 10; ++j) trust = trust && abs_(out[j]) < cap;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) lam[i] = trust ? out[i] : T(0);
+  if (trust) {
+    dr = dr + out[8];
+    da = da + out[9];
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 adjoint_kernel(const AdjParams<T> P, const T* __restrict__ ckpt, const T* __restrict__ ct_y,
@@ -216,12 +395,11 @@ adjoint_kernel(const AdjParams<T> P, const T* __restrict__ ckpt, const T* __rest
   if (grad_ok[lane] != 0 && steps > 0) {
     const bool hit = has_ev[lane] != 0;
     const int kind0 = ev_kind0[lane];
-    T ct_p[kEventWidth];
-#pragma unroll
-    for (int q = 0; q < kEventWidth; ++q) ct_p[q] = hit ? ct_ev[lane * kEventWidth + q] : T(0);
-    // r₊ as the march computes it, for the bit-exact re-forward.
+    // r₊ as the march computes it, for the bit-exact re-forward, and as
+    // the differentiated step takes it.
     const T m = T(0.5) * P.radius;
     const T r_plus = m + sqrt_(nmax(m * m - P.a * P.a, T(0)));
+    const StepTerms<T> S = step_terms(P.radius, P.a);
     const int n_seg_lane = min((steps + K - 1) / K, P.n_seg);
 
     for (int seg = n_seg_lane - 1; seg >= 0; --seg) {
@@ -245,42 +423,29 @@ adjoint_kernel(const AdjParams<T> P, const T* __restrict__ ckpt, const T* __rest
         }
       }
 
-      // Reverse sweep over the segment.
-      for (int k = k_eff - 1; k >= 0; --k) {
-        T yg[8];
+      // Reverse sweep over the segment. A hit lane's last step (the first
+      // one met) carries the payload's cotangent; the others take the
+      // hand-written VJP.
+      int k = k_eff - 1;
+      if (hit && start + k == steps - 1) {
+        T yg[8], out[10], ct_p[kEventWidth];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) yg[i] = scratch[((int64_t)k * 8 + i) * n + lane];
+#pragma unroll
+        for (int q = 0; q < kEventWidth; ++q) ct_p[q] = ct_ev[lane * kEventWidth + q];
+        if (all_finite(yg)) {
+          payload_step_vjp(P, yg, lam, ct_p, kind0, out);
+          take_step(out, lam, dr, da, cap);
+        }
+        --k;
+      }
+      for (; k >= 0; --k) {
+        T yg[8], out[10];
 #pragma unroll
         for (int i = 0; i < 8; ++i) yg[i] = scratch[((int64_t)k * 8 + i) * n + lane];
         if (!all_finite(yg)) continue;  // identity on λ
-        const bool stored = hit && (start + k == steps - 1);
-        T out[10];
-        for (int j = 0; j < 10; ++j) {
-          Dual<T> yd[8], yn[8], pl[kEventWidth];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) yd[i] = Dual<T>(yg[i], i == j ? T(1) : T(0));
-          const Dual<T> rd(P.radius, j == 8 ? T(1) : T(0));
-          const Dual<T> ad(P.a, j == 9 ? T(1) : T(0));
-          step_map(P, rd, ad, yd, kind0, stored, yn, pl);
-          T acc = T(0);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) acc = acc + lam[i] * yn[i].d;
-          if (stored) {
-#pragma unroll
-            for (int q = 0; q < kEventWidth; ++q) acc = acc + ct_p[q] * pl[q].d;
-          }
-          out[j] = acc;
-        }
-        bool trust = true;
-#pragma unroll
-        for (int j = 0; j < 10; ++j) trust = trust && abs_(out[j]) < cap;
-        if (trust) {
-#pragma unroll
-          for (int i = 0; i < 8; ++i) lam[i] = out[i];
-          dr = dr + out[8];
-          da = da + out[9];
-        } else {
-#pragma unroll
-          for (int i = 0; i < 8; ++i) lam[i] = T(0);
-        }
+        step_vjp(P, S, yg, lam, out);
+        take_step(out, lam, dr, da, cap);
       }
     }
   }

@@ -10,6 +10,27 @@ from __future__ import annotations
 import torch
 
 
+def lower(g, v):
+    """g_{μν} v^ν: [..., n, n] and [..., n] → [..., n], the products summed
+    elementwise in index order. The same contraction written as einsum runs
+    as a batched matmul, whose library kernel, and so its rounding, changes
+    with the batch count; the rays' colors then moved in their last bits
+    with --chunk-size. This form rounds alike at every batch size."""
+    out = g[..., :, 0] * v[..., None, 0]
+    for j in range(1, v.shape[-1]):
+        out = out + g[..., :, j] * v[..., None, j]
+    return out
+
+
+def dot(v, w):
+    """Σ_μ v_μ w_μ over the last axis, summed elementwise in index order
+    (batch-invariant, as `lower`)."""
+    out = v[..., 0] * w[..., 0]
+    for j in range(1, v.shape[-1]):
+        out = out + v[..., j] * w[..., j]
+    return out
+
+
 def unit_time_vector(x):
     """e_t = (1, 0, 0, 0) broadcast like x."""
     e_t = torch.zeros_like(x)
@@ -30,8 +51,7 @@ class Geometry:
 
     def inner_product(self, x, v, w):
         """g_{μν} v^μ w^ν at x."""
-        g = self.metric(x)
-        return torch.einsum("...ij,...i,...j->...", g, v, w)
+        return dot(v, lower(self.metric(x), w))
 
     def lorentz_transformation(self, x, velocity):
         """Boost matrix mapping the tetrad frame to the observer with

@@ -14,7 +14,7 @@ import torch
 
 from gr_raytracer_tpu_torch.geometry import chart as charts
 from gr_raytracer_tpu_torch.geometry import circular_orbit
-from gr_raytracer_tpu_torch.geometry.base import Geometry, gram_schmidt, unit_time_vector
+from gr_raytracer_tpu_torch.geometry.base import Geometry, gram_schmidt, lower, unit_time_vector
 
 _ETA_DIAG = (-1.0, 1.0, 1.0, 1.0)
 
@@ -60,13 +60,10 @@ class KerrSolver:
 
     def initial_state(self, x, p):
         """Lower the index: the state carries covariant momentum."""
-        g = kerr_metric(self.radius, self.a, x)
-        p_cov = torch.einsum("...ij,...j->...i", g, p)
-        return torch.cat([x, p_cov], dim=-1)
+        return torch.cat([x, lower(kerr_metric(self.radius, self.a, x), p)], dim=-1)
 
     def momentum(self, y):
-        ginv = kerr_metric_contravariant(self.radius, self.a, y[..., :4])
-        return torch.einsum("...ij,...j->...i", ginv, y[..., 4:8])
+        return lower(kerr_metric_contravariant(self.radius, self.a, y[..., :4]), y[..., 4:8])
 
 
 @dataclass(frozen=True)

@@ -20,7 +20,7 @@ import torch
 
 from gr_raytracer_tpu_torch.geometry import chart as charts
 from gr_raytracer_tpu_torch.geometry import circular_orbit
-from gr_raytracer_tpu_torch.geometry.base import Geometry, gram_schmidt
+from gr_raytracer_tpu_torch.geometry.base import Geometry, gram_schmidt, lower
 
 # Floor for sin²θ in the Carter-constant axis guard.
 SIN2_FLOOR = 1e-28
@@ -214,8 +214,7 @@ class KerrBL(Geometry):
     def conserved_from_bl(self, x, p):
         """(E, L_z, Q) from a BL point and contravariant momentum."""
         r, theta = x[..., 1], x[..., 2]
-        g = metric_bl(self.radius, self.a, r, theta)
-        p_cov = torch.einsum("...ij,...j->...i", g, p)
+        p_cov = lower(metric_bl(self.radius, self.a, r, theta), p)
         e = -p_cov[..., 0]
         l_z = p_cov[..., 3]
         p_theta = p_cov[..., 2]

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from gr_raytracer_tpu_torch.geometry.base import dot, lower
 from gr_raytracer_tpu_torch.geometry.kerr import Kerr
 from gr_raytracer_tpu_torch.geometry.kerr_bl import KerrBL
 from gr_raytracer_tpu_torch.geometry.schwarzschild import Schwarzschild
@@ -77,11 +78,9 @@ def _impact_proxy(geometry, x, p):
     if isinstance(geometry, KerrBL):
         e, l_z, q = geometry.conserved_from_bl(x, p)
         return e, torch.sqrt(torch.clamp(l_z * l_z + q, min=0.0))
-    g = geometry.metric(x)
-    p_cov = torch.einsum("...ij,...j->...i", g, p)
-    e = -p_cov[..., 0]
+    e = -lower(geometry.metric(x), p)[..., 0]
     l = torch.linalg.cross(x[..., 1:4], p[..., 1:4])
-    return e, torch.sqrt(torch.sum(l * l, dim=-1))
+    return e, torch.sqrt(dot(l, l))
 
 
 class KernelSpec(NamedTuple):
