@@ -16,10 +16,20 @@ non-zero on failure:
      20,000-step budget, in float32 and float64 with the Kahan update off
      and on; and each one's critical path (its longest lane, and the
      kernel's time on the 128 longest lanes alone; as in phases 8, 13, 21
-     and 22);
+     and 22); then K1's registers and the instructions of one common-path
+     step in its SASS (as K3's in phase 8), and K1's launch table
+     (K1Launches: per launch its lanes, Σ steps, longest lane, p99, p50,
+     ms, steps/s, warp efficiency in launch order and the ms of its 128
+     longest lanes alone) on the KS, disc and sphere, and medium fit
+     frames, with each one's issue share;
   4. the main path: the CLI `render` of kerr.toml at 1000×1000, float32,
      adaptive supersampling on, into a temporary directory; the kernel's
      launch count must rise and the frame must show horizon, sky and disc;
+     its K1 launch table; then K1 at the main path's shape against its
+     plain version: pass 1's 1,000,000 lanes marched as the render marches
+     them (fast_path._march: one launch, most lanes taken by the kernel's
+     refill) with phase 3's float32 chunk in the place of its own pixels,
+     whose lanes must equal phase 3's plain results bit for bit;
   5. K1 with checkpoints (every 128 steps) against its plain version on the
      65,536 rays of the 256² flagship fit frame at its true parameters,
      budget 2,000, float32 and float64: outputs and the checkpoint rows a
@@ -91,7 +101,9 @@ non-zero on failure:
      it prints the rays re-traced because they overflowed their 8 event
      slots, and, as a fault, those that overflowed the re-trace's 32 too,
      and the batch use and longest lane of each K5 launch and the frame's
-     batch use;
+     batch use; its K1 launch table, and phase 4's check of K1 at the main
+     path's shape on its AA pass, with phase 13's float32 chunk in the
+     middle;
  15b. kerr.toml at 1000² and kerr-volumetric-streaky at 500² rendered by
      the CLI at --chunk-size 65,536 and at 2^20: each pair of frames must
      be equal bit for bit;
@@ -143,7 +155,7 @@ non-zero on failure:
  25. the CLI `render` of schwarzschild-sphere.toml at 512×512 (K3 at
      r_s = 0; sphere hits): each of 23-25 prints its seconds, scene build,
      passes, the kernel's launches, ms and share of the frame, and the rays
-     whose first event is a sphere or a disc;
+     whose first event is a sphere or a disc (24 also K1's launch table);
  26. phase 19's value and gradient in float64, beside the float32 one and
      the JAX package's (docs/gradient_bench.json "volumetric");
  27. K1 with checkpoints and sphere events against its plain version on
@@ -972,18 +984,11 @@ def sweep_critical_path(sweep, args):
 
 
 def sweep_issue_share(args, ms, instructions):
-    """The share of the card's issue slots (132 SMs × 4 schedulers × 32
-    lanes × the SM clock) that a sweep launch of `ms` fills with the
-    common-path instructions of its steps (sass_sweep_step's re-forward
-    step plus reverse step, each taken once per step of a grad_ok lane).
-    Lanes idle in a diverged warp are not counted; a hit lane's payload
-    step is counted as a plain one."""
-    import torch
-
-    steps = float((args[3].long() * (args[4] != 0)).sum())
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock_hz = float(nvidia_smi("clocks.max.sm")) * 1e6
-    return steps / (ms / 1e3) * instructions / (sms * 4 * 32 * clock_hz)
+    """issue_share of a sweep launch of `ms`: the common-path
+    instructions of its steps (sass_sweep_step's re-forward step plus
+    reverse step, each taken once per step of a grad_ok lane); a hit
+    lane's payload step is counted as a plain one."""
+    return issue_share(float((args[3].long() * (args[4] != 0)).sum()), ms, instructions)
 
 
 def compare_adjoint(dtype, march, spec, flops, consts=(), k_ckpt=K_CKPT, sass=None):
@@ -1403,6 +1408,125 @@ class K3Launches:
                             "first_10pct_share"], "rows": rows, "summary": summary}
 
 
+class K1Launches:
+    """Records each K1 launch inside the block (by wrapping
+    geodesic_march._march_cuda and raytracer.trace_pixels_chunked): its
+    traced pass (0 outside a render, 1, or 2 for AA), whether it marches
+    the pass's rays or re-traces those that overflowed their event slots
+    (OVERFLOW_MAX_EVENTS slots), its arguments (to time its longest lanes
+    alone), its outputs (on the card until read) and its CUDA events (the
+    launch timer is set to a list inside the block where it is not one);
+    and the pixel coordinates of each traced pass."""
+
+    def __enter__(self):
+        from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+        from gr_raytracer_tpu_torch.rendering import raytracer as rt
+
+        self.gm, self.rt = gm, rt
+        self.inner_march, self.inner_trace = gm._march_cuda, rt.trace_pixels_chunked
+        self.launches, self.passes = [], []
+        self.own_timer = gm.launch_timer is None
+        if self.own_timer:
+            gm.launch_timer = []
+
+        def march(y0, consts, *rest, **kwargs):
+            if not consts and gm.launch_timer is None:  # cli_render's timer ended with its render
+                gm.launch_timer = []
+                self.own_timer = True
+            out = self.inner_march(y0, consts, *rest, **kwargs)
+            if not consts:
+                self.launches.append({"pass": len(self.passes), "args": (y0.clone(), consts, *rest),
+                                      "kwargs": kwargs, "out": out, "events": gm.launch_timer[-1]})
+            return out
+
+        def trace(scene, row_f, col_f, chunk_size, progress=False):
+            self.passes.append((row_f, col_f))
+            return self.inner_trace(scene, row_f, col_f, chunk_size, progress)
+
+        gm._march_cuda = march
+        rt.trace_pixels_chunked = trace
+        return self
+
+    def __exit__(self, *exc):
+        self.gm._march_cuda = self.inner_march
+        self.rt.trace_pixels_chunked = self.inner_trace
+        if self.own_timer:
+            self.gm.launch_timer = None
+
+    def kind(self, launch):
+        from gr_raytracer_tpu_torch.rendering.raytracer import OVERFLOW_MAX_EVENTS
+
+        return "retrace" if launch["out"][3].shape[1] == OVERFLOW_MAX_EVENTS else "march"
+
+    def tail_ms(self, launch, reps=3):
+        """K1's ms on the launch's TAIL_LANES longest lanes alone, in their
+        launch order (not counted as launches)."""
+        import torch
+
+        y0, *rest = launch["args"]
+        idx = torch.sort(torch.argsort(launch["out"][2], descending=True, stable=True)[:TAIL_LANES]).values
+        sub = y0[idx].contiguous()
+        count = self.gm.launches
+        run = lambda: self.inner_march(sub, *rest, **launch["kwargs"])
+        run()
+        torch.cuda.synchronize()
+        ms = time_cuda(run, reps)[0]
+        self.gm.launches = count
+        return ms
+
+    def table(self, instructions_per_step=None, tail=True):
+        """One row a launch: [pass, kind, lanes, Σ steps, longest lane,
+        p99, p50, ms, steps/s, warp efficiency (Σ steps over Σ 32 × each
+        warp's longest lane, warps taken as 32 lanes in launch order), ms
+        of its TAIL_LANES longest lanes alone (with `tail`)]; with
+        `instructions_per_step` (K1's common-path step in SASS) the issue
+        share of the launches together and of each."""
+        import torch
+
+        rows = []
+        for launch in self.launches:
+            n = launch["out"][2].long()
+            total = int(n.sum())
+            warps = torch.nn.functional.pad(n, (0, -n.numel() % 32)).reshape(-1, 32).amax(dim=1)
+            q = torch.quantile(n.double(), torch.tensor([0.99, 0.5], dtype=torch.float64, device=n.device))
+            ms = launch["events"][0].elapsed_time(launch["events"][1])
+            p = launch["pass"]
+            rows.append(["" if p == 0 else ("1" if p == 1 else "AA"), self.kind(launch), n.numel(), total,
+                         int(n.max()), float(q[0]), float(q[1]), round(ms, 4), total / max(ms / 1e3, 1e-9),
+                         round(total / max(32 * int(warps.sum()), 1), 4),
+                         round(self.tail_ms(launch), 4) if tail else None])
+        out = {"columns": ["pass", "kind", "lanes", "sum_steps", "longest", "p99", "p50", "ms", "steps_per_s",
+                           "warp_efficiency", f"ms_longest_{TAIL_LANES}"], "rows": rows,
+               "ms": sum(r[7] for r in rows), "launches": len(rows)}
+        if instructions_per_step:
+            out["issue_share"] = issue_share(sum(r[3] for r in rows), out["ms"], instructions_per_step)
+            out["issue_share_by_launch"] = [issue_share(r[3], r[7], instructions_per_step) for r in rows]
+        return out
+
+
+def k1_fit_frame_tables(instructions_per_step):
+    """K1's launch table (K1Launches) on the frames of the KS fit (the
+    flagship 256² frame at its true parameters, a checkpoint every
+    K_CKPT steps), the Kerr disc and sphere fit (its target, a
+    checkpoint every SPHERE_K_CKPT steps) and the medium fit (the 256²
+    kerr-volumetric-streaky frame's geometric pass), each the one launch
+    of a forward."""
+    import torch
+
+    from gr_raytracer_tpu_torch.rendering import fast_path
+
+    with K1Launches() as rec:
+        for sphere, k_ckpt in ((False, K_CKPT), (True, SPHERE_K_CKPT)):
+            kernel, _, args, kw, _, _ = ckpt_march_setup(torch.float32, sphere=sphere, k_ckpt=k_ckpt)
+            kernel(*args, **kw)
+        scene, spec, x, p = vol_grad_scene(VOL_TOML, VOL_FIT_SIZE, VOL_CAMERA_KW)
+        fast_path.trace_geometric_fast(scene, x, p, spec)
+        torch.cuda.synchronize()
+    table = rec.table(instructions_per_step)
+    table["frames"] = ["KS fit", "Kerr disc+sphere fit", "medium fit"]
+    return table
+
+
 class HostTime:
     """Host seconds spent in the kernel path's functions inside the block
     (fast_path._prepare_march, _march's dispatch, _finish_samples),
@@ -1433,31 +1557,29 @@ class HostTime:
             setattr(self.module, name, fn)
 
 
-def k3_issue_share(table, instructions_per_step):
+def issue_share(steps, ms, instructions_per_step):
     """The share of the card's issue slots (132 SMs × 4 schedulers × 32
-    lanes × the SM clock) that the frame's K3 launches fill with the
-    common-path instructions of their steps: steps/s × instructions a step
-    over that rate. Lanes idle in a diverged warp are not counted."""
+    lanes × the SM clock) that `steps` march steps of
+    `instructions_per_step` common-path instructions each fill in `ms`
+    milliseconds. Lanes idle in a diverged warp are not counted."""
     import torch
 
-    steps = sum(r[4] for r in table["rows"] if r[2] != "1")
-    ms = sum(r[6] for r in table["rows"])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock_hz = float(nvidia_smi("clocks.max.sm")) * 1e6
-    return steps / (ms / 1e3) * instructions_per_step / (sms * 4 * 32 * clock_hz)
+    return steps / max(ms / 1e3, 1e-12) * instructions_per_step / (sms * 4 * 32 * clock_hz)
 
 
-def k3_at_main_shape(toml, size, camera_kw, row_f, col_f, compared, attempts=None):
-    """K3 at the main path's shape against its plain version: the lanes of
-    one traced pass of the CLI render of `toml` (pixel coordinates row_f,
-    col_f; float32, the CLI's options; the render's one chunk), prepared as
-    the render prepares them, with a compared chunk's lanes (`compared`,
-    kept by compare_march: its inputs and the plain version's results) in
-    the place of as many lanes in the middle, all marched as the render
-    marches them (fast_path._march; `attempts` as there). The pass holds
-    more lanes than the card keeps threads, so most of them are taken by
-    the kernel's refill. The compared chunk's lanes must equal the plain
-    version's results bit for bit."""
+def at_main_shape(toml, size, camera_kw, row_f, col_f, compared, attempts=None):
+    """K1 or K3 (the scene's march) at the main path's shape against its
+    plain version: the lanes of one traced pass of the CLI render of
+    `toml` (pixel coordinates row_f, col_f; float32, the CLI's options;
+    the render's one chunk), prepared as the render prepares them, with a
+    compared chunk's lanes (`compared`, kept by compare_march: its inputs
+    and the plain version's results) in the place of as many lanes in the
+    middle, all marched as the render marches them (fast_path._march;
+    `attempts` as there). The pass holds more lanes than the card keeps
+    threads, so most of them are taken by the kernel's refill. The compared
+    chunk's lanes must equal the plain version's results bit for bit."""
     import numpy as np
     import torch
 
@@ -1478,14 +1600,15 @@ def k3_at_main_shape(toml, size, camera_kw, row_f, col_f, compared, attempts=Non
     for lo, hi in ((0, at), (at + n, total)):
         x, p = cam.pixel_rays(scene.camera, rows[lo:hi], cols[lo:hi])
         solver, y0, _, _ = fast_path._prepare_march(scene, x, p)
-        lanes.append((y0, solver.e, solver.l_z, solver.q))
+        lanes.append((y0, solver.e, solver.l_z, solver.q) if spec.mino else (y0,))
         if lo == 0:
             lanes.append(inputs)
-    y0, e, l_z, q = (torch.cat(v).contiguous() for v in zip(*lanes))
-    got = fast_path._march(spec, scene.integration, fast_path._Conserved(e, l_z, q), y0, attempts=attempts)
+    y0, *consts = (torch.cat(v).contiguous() for v in zip(*lanes))
+    solver = fast_path._Conserved(*consts) if spec.mino else None
+    got = fast_path._march(spec, scene.integration, solver, y0, attempts=attempts)
     eq = lambda g, r: bool(((g == r) | (g.isnan() & r.isnan())).all() if g.is_floating_point() else (g == r).all())
-    return {"pass_lanes": total, "compared_lanes": n, "compared_at": at, "attempts": attempts,
-            "bit_identical": all(eq(g[at:at + n], r) for g, r in zip(got, ref))}
+    return {"kernel": "K3" if spec.mino else "K1", "pass_lanes": total, "compared_lanes": n, "compared_at": at,
+            "attempts": attempts, "bit_identical": all(eq(g[at:at + n], r) for g, r in zip(got, ref))}
 
 
 def _sass_classify(seq):
@@ -2627,9 +2750,10 @@ def sphere_march_phases():
     return sphere_marches
 
 
-def sphere_render_phases():
-    """Phases 23-25: the CLI renders of the sphere scenes; returns {scene
-    file: summary}."""
+def sphere_render_phases(k1_step=None):
+    """Phases 23-25: the CLI renders of the sphere scenes (a K1 launch
+    table with the issue share of `k1_step` instructions a step); returns
+    {scene file: summary}."""
     from gr_raytracer_tpu_torch.ops import geodesic_march as gm
 
     sphere_renders = {}
@@ -2640,7 +2764,7 @@ def sphere_render_phases():
     ), start=23):
         phase(f"{number}. sphere path: CLI render of {name}")
         counter = ("K3", gm, "bl_launches") if label == "K3" else ("K1", gm, "launches")
-        with tempfile.TemporaryDirectory() as tmp, Slot0Kinds() as slot0, K3Launches() as k3:
+        with tempfile.TemporaryDirectory() as tmp, Slot0Kinds() as slot0, K3Launches() as k3, K1Launches() as k1:
             png = os.path.join(tmp, name.replace(".toml", ".png"))
             out, total_s, ran = cli_render(toml, size, camera, png, (counter,))
             # Flat scenes (r_s = 0) have no horizon.
@@ -2655,6 +2779,8 @@ def sphere_render_phases():
                         "slot0_disc_hits": disc_hits, "slot0_no_event": none})
         if label == "K3":
             summary["k3_launch_table"] = k3.table()
+        else:
+            summary["k1_launch_table"] = k1.table(k1_step)
         sphere_renders[name] = summary
         print(json.dumps(summary), flush=True)
         if k_launches == 0:
@@ -3061,19 +3187,27 @@ def main():
     phase("3. K1 against its plain version")
     flops_per_step = count_step_flops()
     print(f"flops per ray-step (plain step, counted): {flops_per_step}")
-    variants = {}
+    variants, k1_chunk = {}, {}
     for dtype in (torch.float32, torch.float64):
         for compensated in (False, True):
-            r = compare_march(dtype, compensated, flops_per_step)
+            main_config = dtype == torch.float32 and not compensated
+            r = compare_march(dtype, compensated, flops_per_step, keep=k1_chunk if main_config else None)
             variants[(dtype, compensated)] = r
             print(json.dumps(r), flush=True)
             if not r["ok"]:
                 fail(f"K1 disagrees with its plain version: {r}")
+    # K1's registers and the instructions of one common-path step (as K3's
+    # in phase 8), and its launch table on the three fit frames.
+    k1_sass = sass_k3_step("kerr_rk4_march.cu", "march_kernel")
+    print(json.dumps({"k1_ptxas": registers.get("kerr_rk4_march.cu"), "k1_sass": k1_sass}), flush=True)
+    k1_step = k1_sass.get("f32", {}).get("loop", {}).get("common_path", {}).get("instructions")
+    k1_tables = {"fit frames": k1_fit_frame_tables(k1_step)}
+    print(json.dumps({"k1_launches": "fit frames", **k1_tables["fit frames"]}), flush=True)
 
     phase("4. main path: CLI render of kerr.toml")
     gm.launches = 0
     gm.launch_timer = []
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, K1Launches() as k1_kerr:
         png = os.path.join(tmp, "render-kerr.png")
         argv = ["--width", str(FRAME), "--height", str(FRAME), *CAMERA, "--max-steps", str(MAX_STEPS),
                 "-c", KERR_TOML, "render", "--filename", png]
@@ -3115,6 +3249,16 @@ def main():
         "stop_counts_pass1": stops.tolist(),
     }
     print(json.dumps(main), flush=True)
+    k1_tables["kerr.toml"] = k1_kerr.table(k1_step)
+    print(json.dumps({"k1_launches": "kerr.toml", **k1_tables["kerr.toml"]}), flush=True)
+    # K1 over the whole of pass 1, refill included, with phase 3's float32
+    # chunk in its middle: those lanes must equal its plain results.
+    k1_main_shape = {"kerr.toml pass 1": at_main_shape(KERR_TOML, FRAME, KERR_CAMERA_KW, *k1_kerr.passes[0],
+                                                       k1_chunk)}
+    del k1_chunk
+    print(json.dumps({"k1_at_main_shape": k1_main_shape}), flush=True)
+    if not k1_main_shape["kerr.toml pass 1"]["bit_identical"]:
+        fail(f"K1 at the main path's shape disagrees with its plain version: {k1_main_shape}")
     # The pass-1 rays that stop NAN, for the reference's verdict on them.
     print(json.dumps(nan_lanes_report()), flush=True)
 
@@ -3191,10 +3335,12 @@ def main():
     print(json.dumps({"k3_launches": "kerr-bl.toml", **k3_tables["kerr-bl.toml"]}), flush=True)
     f32_step = k3_sass.get("f32", {}).get("loop", {}).get("common_path", {}).get("instructions")
     if f32_step:
-        print(json.dumps({"k3_issue_share": {"kerr-bl.toml": k3_issue_share(k3_tables["kerr-bl.toml"], f32_step),
+        rows = k3_tables["kerr-bl.toml"]["rows"]
+        share = issue_share(sum(r[4] for r in rows if r[2] != "1"), sum(r[6] for r in rows), f32_step)
+        print(json.dumps({"k3_issue_share": {"kerr-bl.toml": share,
                                              "instructions_per_step": f32_step}}), flush=True)
-    k3_main_shape = {"kerr-bl.toml pass 1": k3_at_main_shape(KERR_BL_TOML, FRAME, BL_CAMERA_KW,
-                                                             *k3_kerr_bl.passes[0], bl_chunk)}
+    k3_main_shape = {"kerr-bl.toml pass 1": at_main_shape(KERR_BL_TOML, FRAME, BL_CAMERA_KW,
+                                                          *k3_kerr_bl.passes[0], bl_chunk)}
     del bl_chunk
     print(json.dumps({"k3_at_main_shape": k3_main_shape}), flush=True)
     if not k3_main_shape["kerr-bl.toml pass 1"]["bit_identical"]:
@@ -3239,7 +3385,7 @@ def main():
     print(json.dumps(bl_fit), flush=True)
 
     phase("13. K1 and K3 with volume events against their plain versions")
-    vol_marches, bl_vol_chunk = {}, {}
+    vol_marches, bl_vol_chunk, k1_vol_chunk = {}, {}, {}
     for dtype in (torch.float32, torch.float64):
         for bl in (False, True):
             if bl:
@@ -3248,7 +3394,7 @@ def main():
                                   keep=bl_vol_chunk if dtype == torch.float32 else None)
             else:
                 r = compare_march(dtype, False, flops_per_step, toml=VOL_TOML, size=VOL_FRAME,
-                                  camera=VOL_CAMERA_KW)
+                                  camera=VOL_CAMERA_KW, keep=k1_vol_chunk if dtype == torch.float32 else None)
             vol_marches[(dtype, bl)] = r
             print(json.dumps(r), flush=True)
             if not (r["ok"] and r["events"] > 0):
@@ -3268,12 +3414,23 @@ def main():
     phase("15. volumetric main path: CLI render of kerr-volumetric-streaky")
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, "render-volumetric.png")
-        with RaymarchSamples() as marched:
+        with RaymarchSamples() as marched, K1Launches() as k1_vol:
             out, total_s, ran = cli_render(VOL_TOML, VOL_FRAME, CAMERA, png,
                                            (("K1", gm, "launches"), ("K5", vm, "launches")))
         vol_main = vol_frame_summary(out, png, VOL_FRAME, total_s, ran, "kerr-volumetric-streaky", vol_ops,
                                      marched.batch_use())
     print(json.dumps(vol_main), flush=True)
+    # K1's launches: a march a pass, and a re-trace launch for a pass whose
+    # rays overflowed their event slots (overflow_retraced above).
+    k1_tables["kerr-volumetric-streaky"] = k1_vol.table(k1_step)
+    print(json.dumps({"k1_launches": "kerr-volumetric-streaky", "overflow_retraced": vol_main["overflow_retraced"],
+                      **k1_tables["kerr-volumetric-streaky"]}), flush=True)
+    shape = at_main_shape(VOL_TOML, VOL_FRAME, VOL_CAMERA_KW, *k1_vol.passes[1], k1_vol_chunk)
+    del k1_vol_chunk
+    k1_main_shape["kerr-volumetric-streaky AA pass"] = shape
+    print(json.dumps({"k1_at_main_shape": {"kerr-volumetric-streaky AA pass": shape}}), flush=True)
+    if not shape["bit_identical"]:
+        fail(f"K1 at the main path's shape disagrees with its plain version: {shape}")
 
     phase("15b. Kerr-Schild frames at two chunk sizes")
     chunks = chunk_size_phase()
@@ -3293,7 +3450,7 @@ def main():
     k3_tables["kerr-bl-volumetric-streaky"] = k3_bl_vol.table()
     print(json.dumps({"k3_launches": "kerr-bl-volumetric-streaky", **k3_tables["kerr-bl-volumetric-streaky"]}),
           flush=True)
-    shape = k3_at_main_shape(BL_VOL_TOML, BL_VOL_FRAME, BL_CAMERA_KW, *k3_bl_vol.passes[1], bl_vol_chunk,
+    shape = at_main_shape(BL_VOL_TOML, BL_VOL_FRAME, BL_CAMERA_KW, *k3_bl_vol.passes[1], bl_vol_chunk,
                              attempts=BL_COMPARE_ATTEMPTS)
     del bl_vol_chunk
     k3_main_shape["kerr-bl-volumetric-streaky AA pass"] = shape
@@ -3345,7 +3502,9 @@ def main():
         fail(f"the BL volumetric gradient did not launch K3, K6 and K7: {bl_grad}")
 
     sphere_marches = sphere_march_phases()
-    sphere_renders = sphere_render_phases()
+    sphere_renders = sphere_render_phases(k1_step)
+    k1_tables["kerr-sphere.toml"] = sphere_renders["kerr-sphere.toml"]["k1_launch_table"]
+    print(json.dumps({"k1_launches": "kerr-sphere.toml", **k1_tables["kerr-sphere.toml"]}), flush=True)
     k3_tables.update({name: r["k3_launch_table"] for name, r in sphere_renders.items() if "k3_launch_table" in r})
     f64_gradient_phase(vol_fit)
     sphere_sweeps, sphere_fit = sphere_gradient_phases(k2_sass)
@@ -3387,6 +3546,12 @@ def main():
                              if k == "K1" and dt == torch.float32)),
         "sphere_events": sphere_rows("K1"),
         "resume": resumed["K1"],
+        "registers": registers.get("kerr_rk4_march.cu"),
+        "sass_common_path_instructions": {k: v["loop"]["common_path"]["instructions"] for k, v in k1_sass.items()
+                                          if isinstance(v, dict) and "loop" in v},
+        "launches_by_frame": {frame: {k: t.get(k) for k in ("launches", "ms", "issue_share")}
+                              for frame, t in k1_tables.items()},
+        "at_main_shape": k1_main_shape,
         "critical_path": prod["critical_path"],
         "ms": prod["kernel_ms"],
         "plain_ms": prod["plain_ms"],

@@ -249,22 +249,33 @@ __device__ __forceinline__ void start_lane(const ResumeIn<T>& R, int64_t lane, i
 // Kerr-Schild geometry
 // ---------------------------------------------------------------------------
 
-// Kerr-Schild r alone.
+// Kerr-Schild r alone, given rho_sq = x² + y² + z² (in that order).
 template <typename S>
-__device__ __forceinline__ S ks_radius(S a, S x, S y, S z) {
-  S rho_sq = x * x + y * y + z * z;
+__device__ __forceinline__ S ks_radius_at(S a, S rho_sq, S z) {
   S d = rho_sq - a * a;
   S s = sqrt_(d * d + S(4) * a * a * z * z);
   return sqrt_(S(0.5) * (d + s));
 }
 
-// dy/dλ for y = [x4 | p_cov4] with the hand-derived ∂H/∂x (_rhs).
 template <typename S>
-__device__ __forceinline__ void rhs(S radius, S a, const S* y, S* out) {
+__device__ __forceinline__ S ks_radius(S a, S x, S y, S z) {
+  return ks_radius_at(a, x * x + y * y + z * z, z);
+}
+
+// |x|² of a state's position, x² + y² + z² in that order (the right-hand
+// side's, the far-field lever's and the escape test's).
+template <typename S>
+__device__ __forceinline__ S position_sq(const S* y) {
+  return y[1] * y[1] + y[2] * y[2] + y[3] * y[3];
+}
+
+// dy/dλ for y = [x4 | p_cov4] with the hand-derived ∂H/∂x (_rhs), given
+// rho_sq = position_sq(y).
+template <typename S>
+__device__ __forceinline__ void rhs_at(S radius, S a, const S* y, S rho_sq, S* out) {
   const S x = y[1], yy = y[2], z = y[3];
   const S p0 = y[4], p1 = y[5], p2 = y[6], p3 = y[7];
   const S a2 = a * a;
-  const S rho_sq = x * x + yy * yy + z * z;
   const S d = rho_sq - a2;
   const S dd4 = d * d + S(4) * a2 * z * z;
   const S inv_s = rsqrt_(dd4);
@@ -323,6 +334,11 @@ __device__ __forceinline__ void rhs(S radius, S a, const S* y, S* out) {
   out[5] = S(0.5) * df_x * kp2 + fkp * dkp_x;
   out[6] = S(0.5) * df_y * kp2 + fkp * dkp_y;
   out[7] = S(0.5) * df_z * kp2 + fkp * dkp_z;
+}
+
+template <typename S>
+__device__ __forceinline__ void rhs(S radius, S a, const S* y, S* out) {
+  rhs_at(radius, a, y, position_sq(y), out);
 }
 
 // The VJP of ks_radius: adds (x̄, ȳ, z̄) to xb[0..2] and ā to a_b.
@@ -559,19 +575,20 @@ struct StepRule {
 };
 
 // One RK4 increment y_new − y of the march from state y with carried radius
-// r_here: h = h0·clip((r − r₊)/r_ref, h_min_frac, 1), widened by the
-// far-field lever (half the remaining gap beyond r_safe, capped at ρ/8, for
-// an outward lane). `Guarded` selects the reverse sweep's variant, whose
-// far-field speed is sqrt(max(|v|², 1e-30)) so that its derivative stays
-// finite: the value is the same on every real lane.
+// r_here and carried rho_sq = position_sq(y): h = h0·clip((r − r₊)/r_ref,
+// h_min_frac, 1), widened by the far-field lever (half the remaining gap
+// beyond r_safe, capped at ρ/8, for an outward lane). `Guarded` selects the
+// reverse sweep's variant, whose far-field speed is sqrt(max(|v|², 1e-30))
+// so that its derivative stays finite: the value is the same on every real
+// lane.
 template <bool Guarded, typename S, typename T>
-__device__ __forceinline__ void rk4_delta(const StepRule<T>& R, S radius, S a, S r_plus, S r_here,
-                                          const S* y, S* delta) {
+__device__ __forceinline__ void rk4_delta_at(const StepRule<T>& R, S radius, S a, S r_plus, S r_here,
+                                             S rho_sq, const S* y, S* delta) {
   S h = S(R.h0) * clip((r_here - r_plus) / S(R.r_ref), S(R.h_min_frac), S(1));
   S k[8], acc[8], tmp[8];
-  rhs(radius, a, y, k);
+  rhs_at(radius, a, y, rho_sq, k);
   if (R.r_safe > T(0)) {
-    const S rho = sqrt_(y[1] * y[1] + y[2] * y[2] + y[3] * y[3]);
+    const S rho = sqrt_(rho_sq);
     const S speed2 = k[1] * k[1] + k[2] * k[2] + k[3] * k[3];
     const S speed = Guarded ? sqrt_(nmax(speed2, S(1e-30))) : sqrt_(speed2);
     const bool outward = (y[1] * k[1] + y[2] * k[2] + y[3] * k[3]) > S(0);
@@ -601,6 +618,13 @@ __device__ __forceinline__ void rk4_delta(const StepRule<T>& R, S radius, S a, S
   const S h6 = h / S(6);
 #pragma unroll
   for (int i = 0; i < 8; ++i) delta[i] = h6 * (acc[i] + k[i]);
+}
+
+// rk4_delta_at with rho_sq computed from y.
+template <bool Guarded, typename S, typename T>
+__device__ __forceinline__ void rk4_delta(const StepRule<T>& R, S radius, S a, S r_plus, S r_here,
+                                          const S* y, S* delta) {
+  rk4_delta_at<Guarded>(R, radius, a, r_plus, r_here, position_sq(y), y, delta);
 }
 
 }  // namespace ks

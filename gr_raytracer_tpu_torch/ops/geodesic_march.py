@@ -938,7 +938,7 @@ def _entry(bl, dtype):
         fn = getattr(lib, f"{stem}_f32" if dtype == torch.float32 else f"{stem}_f64")
         p = ctypes.c_void_p
         fn.argtypes = [p] * (4 if bl else 1) + [
-            ctypes.c_int64, p, p, p, p, p, p, p, p, ctypes.POINTER(p), *([p] if bl else []),
+            ctypes.c_int64, p, p, p, p, p, p, p, p, ctypes.POINTER(p), p,
             ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double), ctypes.c_int,
             ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.POINTER(ctypes.c_double), ctypes.c_int,
             ctypes.POINTER(ctypes.c_int), p,
@@ -997,9 +997,9 @@ def _march_cuda(y0, consts, params, discs, spheres, vols, max_steps, opaque_stop
         int(attempts), int(max_steps), int(bool(opaque_stop)), int(bool(finalize)),
         int(bool(compensated)), int(ckpt_every), int(max_events),
     )
-    # K3's refill counter: the lanes its threads have taken past their first.
-    counter = torch.zeros(1, dtype=torch.int32, device=dev) if bl else None
-    next_lane = (counter.data_ptr(),) if bl else ()
+    # The refill counter: the lanes the kernel's threads have taken past
+    # their first.
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     fn = _entry(bl, dtype)
     timer = bl_launch_timer if bl else launch_timer
     with torch.cuda.device(dev):
@@ -1010,7 +1010,7 @@ def _march_cuda(y0, consts, params, discs, spheres, vols, max_steps, opaque_stop
         err = fn(
             y0.data_ptr(), *(v.data_ptr() for v in consts), n, y_out.data_ptr(), stop.data_ptr(),
             steps.data_ptr(), ev_kind.data_ptr(), ev_data.data_ptr(), ev_count.data_ptr(),
-            ev_ovf.data_ptr(), None if ckpt is None else ckpt.data_ptr(), resume_ptrs, *next_lane, params,
+            ev_ovf.data_ptr(), None if ckpt is None else ckpt.data_ptr(), resume_ptrs, counter.data_ptr(), params,
             disc_rows(discs), len(discs), sphere_rows(spheres), len(spheres), vol_rows, len(vols), ints,
             stream.cuda_stream,
         )
@@ -1055,7 +1055,10 @@ def kerr_rk4_march(
     budget, and the Kahan compensation restarts at zero; with
     compensation off, legs of `attempts` iterations ending in
     finalize=False give one march's results bit for bit. A CUDA tensor goes
-    through the kernel, a CPU tensor through `march_plain`."""
+    through the kernel csrc/kerr_rk4_march.cu, a CPU tensor through
+    `march_plain`. The kernel runs as many threads as the card keeps
+    resident, each taking the next lane (in index order) when its own
+    stops."""
     _check_args(y0, discs, spheres, vols, resume, ckpt_every, max_events)
     if y0.device.type == "cpu":
         return march_plain(
