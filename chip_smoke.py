@@ -98,8 +98,10 @@ non-zero on failure:
  15. the volumetric main path: the CLI `render` of kerr-volumetric-streaky
      at 500×500 (docs/examples.md), float32, 4×4 AA; K1 and K5 must
      launch, the frame must show horizon and sky and K5 lanes that emit;
-     it prints the rays re-traced because they overflowed their 8 event
-     slots, and, as a fault, those that overflowed the re-trace's 32 too,
+     it prints the rays re-traced on the lax path because they overflowed
+     their 8 event slots (their count, accepted steps, march and shading
+     seconds, `lax_retrace`), and, as a fault, those that overflowed the
+     re-trace's 32 too,
      and the batch use and longest lane of each K5 launch and the frame's
      batch use; its K1 launch table, and phase 4's check of K1 at the main
      path's shape on its AA pass, with phase 13's float32 chunk in the
@@ -109,9 +111,10 @@ non-zero on failure:
      be equal bit for bit;
  16. the BL volumetric path: the CLI `render` of
      kerr-bl-volumetric-streaky at 256×256 through K3 and K5 (the same K5
-     figures); then phase 9's check of K3 at the main path's shape on its
-     AA pass, with phase 13's float32 chunk in the middle, over the first
-     4,000 steps against phase 13's plain results;
+     figures, and its lax re-trace: the frame's K3 launches are its main
+     passes alone); then phase 9's check of K3 at the main path's shape
+     on its AA pass, with phase 13's float32 chunk in the middle, over the
+     first 4,000 steps against phase 13's plain results;
  17. the raw-output raymarch K6 against its plain version on phase 14's
      lanes, float32 and float64, at VOL_COMPARE_STEPS samples; its results
      combined (combine_alpha) against K5's XYZA; K6 alone at 50,000;
@@ -187,19 +190,39 @@ non-zero on failure:
      of half the slowest lane's steps, finalize off, leaving lanes
      RUNNING) against one shot: all seven results equal; each leg against
      its plain version (K3's over legs of 2,000 iterations);
- 31. the cost of -fmad=false: vol_raymarch.cu and vol_adjoint.cu built
-     once more with FMA contraction (ops/cuda_build.py NVCC_FLAGS_FMA, in
-     a subdirectory of build/torch_kernels/ that no path of the port
-     loads); K5 and K7 in float32 on phase 14's lanes at the full budget,
-     the two builds in turns: the time ratio and the share of lanes whose
-     results differ (bar: finite outputs);
+ 31. (no longer run: K5 and K7 built with FMA contraction and timed
+     against the -fmad=false build; its numbers stay in PERF.md);
+ 33. the lax (RKF45) main path at full width, float32, sky radius 40 and
+     budget 4,000 (LAX_MAX_RADIUS, LAX_MAX_STEPS): render_section(...,
+     lax=True) of kerr.toml, schwarzschild.toml and kerr-bl.toml at 1000²
+     with AA (seconds, rays/s, accepted steps, loop iterations,
+     compactions, requeue phases, peak memory), each against the kernel
+     frame of the same settings (lax_against_kernel: pass 1's stop
+     agreement, a lax BUDGET ray agreeing only with a kernel HORIZON; the
+     rays where they disagree re-traced in float64 on the lax path, and
+     those it settles for the lax frame counted with the agreeing ones,
+     ≥ 99 %; the tone q99 printed); and 65,536 kerr.toml rays through the
+     compacted, graph-replayed loop against one eager run of its body over
+     their first 1,000 iterations, bit for bit;
+ 34. 512 of kerr.toml's rays (the 128 with the most accepted steps in
+     phase 33's pass 1 among them) in float64 through the lax path on the
+     card and, in a spawned process started in phase 33, on the CPU: stop
+     codes and event counts equal on ≥ 99.9 %, payloads and colors within
+     1e-9 of each lane's scale (the states printed);
+ 35. the split path: kerr-volumetric-streaky's gas disc beside
+     kerr-sphere.toml's sphere at 256² with AA through K1's geometric pass
+     and K5 (its launches, ms, samples, batch use; the frame's K1 and K5
+     launches count in the kernels line); 4,096 of its first K5 launch's
+     lanes against raymarch_plain bit for bit at 2,000 samples; pass 1
+     against the lax path by phase 33's stop bar;
  32. one JSON line {"kernels": [...]} with each kernel's launches, error
      against its plain version, times and bound;
- 33. the last line: {"ok": true, "device": {...}}.
+ 36. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -389,6 +412,42 @@ INT32_LANES_PER_SM = 64  # Hopper: INT32 units per SM
 # threads in K1, K3 and K7; 128 warps in K5 and K6).
 TAIL_LANES = 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+# Phases 33-35, the RKF45 ("lax") path, and the kernel frames they are held
+# against, render with the sky at LAX_MAX_RADIUS (the radius of the study
+# behind the kernel-against-lax bar, scripts/fastpath_accuracy.py:92) and a
+# budget of LAX_MAX_STEPS (tests/test_golden_frames.py's). At the CLI's
+# 15,000 the lax controller's H_MAX = 1 makes every escaping ray take
+# ~15,000 accepted steps (scripts/lax_probe.py on an H100: 15,960 a ray on kerr.toml 256², 5.9 % of
+# them stopped BUDGET where the kernel's far-field lever escapes), which
+# would make a 1000² lax frame take many minutes. Phase 33 renders kerr.toml
+# at FRAME² and schwarzschild.toml and kerr-bl.toml at LAX_FRAMES² (see
+# there), and holds LAX_CHECK_SIDE² rays of kerr.toml compacted against one
+# eager run for their first LAX_CHECK_ATTEMPTS iterations (the eager run
+# dispatches every op).
+LAX_MAX_RADIUS = 40.0
+LAX_MAX_STEPS = 4000
+LAX_CHECK_SIDE = 256
+LAX_CHECK_ATTEMPTS = 1000
+# Phase 34: LAX_F64_RAYS rays of kerr.toml in float64 on the card and the
+# CPU, the LAX_F64_LONGEST with the most accepted steps of phase 33's pass 1
+# among them, the others drawn with LAX_F64_SEED.
+LAX_F64_RAYS = 512
+LAX_F64_LONGEST = 128
+LAX_F64_SEED = 0
+# Phases 33 and 35: the rays where a kernel frame and its lax frame
+# disagree are re-traced in float64 on the lax path, at most LAX_REF_RAYS
+# of them a frame (a sample drawn with LAX_REF_SEED beyond).
+LAX_REF_RAYS = 16_384
+LAX_REF_SEED = 0
+# Phase 35: the gas disc beside a sphere at SPLIT_SIZE², and SPLIT_BATCH of
+# its K5 lanes against the plain raymarch.
+SPLIT_SIZE = 256
+SPLIT_BATCH = 4096
+# Phase 33's other frames: (name, TOML, size, camera, why this size).
+LAX_FRAMES = (
+    ("schwarzschild.toml", SCHWARZSCHILD_TOML, FRAME, BL_CAMERA_KW, "the CLI frame"),
+    ("kerr-bl.toml", KERR_BL_TOML, FRAME, BL_CAMERA_KW, "the CLI frame"),
+)
 
 
 def fail(msg):
@@ -1323,6 +1382,9 @@ def cli_render(toml, size, camera, png, counters, extra=()):
 
     from gr_raytracer_tpu_torch import cli
 
+    from gr_raytracer_tpu_torch.rendering import integrator as integ
+
+    integ.loop_stats.clear()  # the lax loops of the frame's re-traces
     timers = [(label, module, name, name.replace("launches", "launch_timer")) for label, module, name in counters]
     for _, module, name, timer in timers:
         setattr(module, name, 0)
@@ -1367,9 +1429,9 @@ class K3Launches:
                 self.launches.append((len(self.passes), leg, out[3].shape[1], out[2], gm.bl_launch_timer[-1]))
             return out
 
-        def trace(scene, row_f, col_f, chunk_size, progress=False):
+        def trace(scene, row_f, col_f, chunk_size, progress=False, lax=False):
             self.passes.append((row_f, col_f))
-            return self.inner_trace(scene, row_f, col_f, chunk_size, progress)
+            return self.inner_trace(scene, row_f, col_f, chunk_size, progress, lax)
 
         gm._march_cuda = march
         rt.trace_pixels_chunked = trace
@@ -1439,9 +1501,9 @@ class K1Launches:
                                       "kwargs": kwargs, "out": out, "events": gm.launch_timer[-1]})
             return out
 
-        def trace(scene, row_f, col_f, chunk_size, progress=False):
+        def trace(scene, row_f, col_f, chunk_size, progress=False, lax=False):
             self.passes.append((row_f, col_f))
-            return self.inner_trace(scene, row_f, col_f, chunk_size, progress)
+            return self.inner_trace(scene, row_f, col_f, chunk_size, progress, lax)
 
         gm._march_cuda = march
         rt.trace_pixels_chunked = trace
@@ -2200,11 +2262,17 @@ def vol_frame_summary(out, png, size, total_s, ran, what, ops, use):
             fail(f"{what}: the frame launched {label} no time")
     if pass1.vol_emitting == 0:
         fail(f"{what}: no raymarch lane emitted: {pass1}")
-    # Rays that overflowed their 8 event slots were traced again with 32
-    # through the same kernels (the JAX driver re-traces on its lax path); a
-    # ray that overflows those too keeps a truncated fold: a fault.
+    # Rays that overflowed their 8 event slots were traced again with 32 on
+    # the lax path, as the JAX driver does; a ray that overflows those too
+    # keeps a truncated fold: a fault.
+    from gr_raytracer_tpu_torch.rendering import integrator as integ
+
     overflow = pass1.overflow + aa.overflow
     dropped = pass1.overflow_dropped + aa.overflow_dropped
+    retrace = {"rays": overflow, "accepted_steps": pass1.overflow_steps + aa.overflow_steps,
+               "march_s": pass1.overflow_march_s + aa.overflow_march_s,
+               "shade_s": pass1.overflow_shade_s + aa.overflow_shade_s,
+               "loops": {k: v for k, v in integ.loop_stats.items()}, "still_overflowing": dropped}
     if dropped:
         print(f"chip_smoke: FAULT (ROADMAP Queue 3): {what}: {dropped} rays overflow "
               f"{OVERFLOW_MAX_EVENTS} event slots after their re-trace; their fold is truncated", flush=True)
@@ -2215,7 +2283,7 @@ def vol_frame_summary(out, png, size, total_s, ran, what, ops, use):
         "vol_lanes_pass1": pass1.vol_lanes, "vol_lanes_aa": aa.vol_lanes,
         "vol_emitting_pass1": pass1.vol_emitting, "vol_emitting_aa": aa.vol_emitting,
         "vol_samples_pass1": pass1.vol_samples, "vol_samples_aa": aa.vol_samples,
-        "overflow_retraced": overflow, "fault_overflow_truncated": dropped,
+        "overflow_retraced": overflow, "fault_overflow_truncated": dropped, "lax_retrace": retrace,
         "k5_launches": k5_launches, "k5_ms": k5_ms,
         "k5_share": k5_ms / 1e3 / total_s, "k5_samples_per_s": samples / max(k5_ms / 1e3, 1e-9),
         "k5_bound_ms": raymarch_bound_ms(samples, pass1.vol_lanes + aa.vol_lanes, ops, torch.float32)[0],
@@ -2449,109 +2517,6 @@ def k7_fd_check():
     r["ok"] = (all(e <= VOL_FD_BAR for e in r["rel_err"]) and all(np.isfinite(r["k7_sums"]))
                and max(r["lanes_exit_moved"]) <= r["lanes_exit_moved_cap"])
     return r
-
-
-def _bound_like(fn, lib, name):
-    """The C entry point `name` of `lib`, with the argument types of the
-    port's own binding `fn`."""
-    other = getattr(lib, name)
-    other.argtypes, other.restype = fn.argtypes, fn.restype
-    return other
-
-
-def k5_launcher(fn, vol_spec):
-    """Launch the K5 C entry point `fn` (bound as vm._entry binds it) of
-    another build on lanes (ro, rd, obs_e, p_t, p_phi, active, exit_d):
-    returns (XYZA, samples). Not a path of the port: it counts no launch."""
-    import ctypes
-
-    import torch
-
-    from gr_raytracer_tpu_torch.ops import volumetric_march as vm
-
-    hp = vm._host_params(vol_spec)
-
-    def launch(lanes):
-        ro, rd, obs_e, p_t, p_phi, active, exit_d = lanes
-        n = ro.shape[0]
-        out = torch.empty((n, 4), dtype=ro.dtype, device=ro.device)
-        samples = torch.empty(n, dtype=torch.int32, device=ro.device)
-        vm._launch("vol_raymarch (another build)", fn, None, ro.device, ctypes.byref(hp),
-                   *(v.data_ptr() for v in (ro, rd, obs_e, p_t, p_phi, exit_d, active)), n, out.data_ptr(),
-                   samples.data_ptr())
-        return out, samples
-
-    return launch
-
-
-def time_in_turns(a, b, reps):
-    """Two builds of one kernel in turns (a, b, b, a), `reps` launches each
-    after a first launch of b: ([a ms], [b ms], a's result, b's result)."""
-    b()
-    ms_a, out_a = time_cuda(a, reps)
-    ms_b, out_b = time_cuda(b, reps)
-    ms_c, _ = time_cuda(b, reps)
-    ms_d, _ = time_cuda(a, reps)
-    return [ms_a, ms_d], [ms_b, ms_c], out_a, out_b
-
-
-def fma_cost_phase():
-    """Phase 31: vol_raymarch.cu and vol_adjoint.cu built once more without
-    -fmad=false (cuda_build.NVCC_FLAGS_FMA, in a subdirectory of their own;
-    no path of the port loads them). K5 and K7 in float32 on phase 14's
-    lanes at the full budget, the bit-identical build and the FMA build in
-    turns (default, FMA, FMA, default): the time ratio and the share of
-    lanes whose results differ. The only bar is finite outputs."""
-    import ctypes
-
-    import numpy as np
-    import torch
-
-    from gr_raytracer_tpu_torch.ops import cuda_build
-    from gr_raytracer_tpu_torch.ops import volumetric_adjoint as va
-    from gr_raytracer_tpu_torch.ops import volumetric_march as vm
-
-    t0 = time.perf_counter()
-    fma = {src: cuda_build.load(src, cuda_build.NVCC_FLAGS_FMA) for src in ("vol_raymarch.cu", "vol_adjoint.cu")}
-    build_s = time.perf_counter() - t0
-    registers = {key: ptxas_summary(log) for key, (_, log) in cuda_build.BUILD_LOG.items() if key.startswith("flags-")}
-    dtype = torch.float32
-    vol_spec, lanes, med = vol_chunk_lanes(dtype)
-    n = lanes[0].shape[0]
-    ins = (lanes[0], lanes[1], lanes[2], lanes[3], lanes[4], lanes[6], lanes[5])  # ro, rd, obs_e, p_t, p_phi, exit_d, active
-    hp = vm._host_params(vol_spec)
-    k5_fma = k5_launcher(_bound_like(vm._entry(dtype), fma["vol_raymarch.cu"], "vol_raymarch_f32"), vol_spec)
-    k7_fma = _bound_like(va._entry(dtype), fma["vol_adjoint.cu"], "vol_adjoint_f32")
-
-    ct = torch.as_tensor(np.random.default_rng(0).normal(size=(n, 6)), dtype=dtype, device="cuda")
-    acc, t_f, _, _ = vm.raymarch_raw(vol_spec, med, *lanes)
-    cts = torch.cat([ct, torch.sum(ct[:, :3] * acc, dim=-1)[:, None], t_f[:, None]], dim=1).contiguous()
-
-    def k7_with_fma():
-        d_in = torch.empty((n, va.DIN_VARS), dtype=dtype, device="cuda")
-        d_med = torch.empty((n, va.N_MED), dtype=dtype, device="cuda")
-        vm._launch("vol_adjoint (FMA)", k7_fma, None, torch.device("cuda"), ctypes.byref(hp), med.data_ptr(),
-                   *(v.data_ptr() for v in (*ins, cts)), n, d_in.data_ptr(), d_med.data_ptr())
-        return d_in, d_med
-
-    res = {"build_s": build_s, "flags": " ".join(cuda_build.NVCC_FLAGS_FMA), "registers": registers, "lanes": n}
-    for label, plain_build, fma_build, reps in (
-        ("K5", lambda: vm.raymarch(vol_spec, *lanes), lambda: k5_fma(lanes), 3),
-        ("K7", lambda: va.vol_march_bwd(vol_spec, med, *lanes, cts), k7_with_fma, 1),
-    ):
-        ms_default, ms_fma, ref, got = time_in_turns(plain_build, fma_build, reps)
-        rows_ref, rows_got = ref[0], got[0]
-        differ = (rows_ref != rows_got).any(dim=1)
-        if label == "K5":
-            differ = differ | (ref[1] != got[1])
-        res[label] = {
-            "ms_fmad_false": ms_default, "ms_fma": ms_fma, "time_ratio_fma": sum(ms_fma) / sum(ms_default),
-            "lanes_differ": float(differ.double().mean()),
-            "max_abs_diff": float((rows_got - rows_ref).abs().max()),
-            "finite": all(bool(torch.isfinite(v).all()) for v in got if v.is_floating_point()),
-        }
-    res["ok"] = res["K5"]["finite"] and res["K7"]["finite"]
-    return res
 
 
 def probe_loss(color):
@@ -3141,6 +3106,517 @@ def resume_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 33-35: the RKF45 ("lax") path
+# ---------------------------------------------------------------------------
+
+
+def lax_scene(toml, size, camera_kw, dtype, device="cuda", objects=None):
+    """The scene the CLI builds for `toml` at size², with phase 33's sky
+    radius LAX_MAX_RADIUS and budget LAX_MAX_STEPS."""
+    import torch
+
+    from gr_raytracer_tpu_torch import config as tcfg
+
+    opts = tcfg.RenderOptions(width=size, height=size, max_steps=LAX_MAX_STEPS, max_radius=LAX_MAX_RADIUS,
+                              **camera_kw)
+    cfg = tcfg.load_config(toml)
+    if objects is not None:
+        cfg = dataclasses.replace(cfg, objects=objects)
+    return tcfg.create_scene(cfg, opts, dtype, torch.device(device))
+
+
+class ChunkOutputs:
+    """Records the host results of every chunk the renders inside the block
+    trace (by wrapping raytracer._trace_chunk and trace_pixels_chunked):
+    per traced pass, its pixel coordinates and the chunks' (stop code,
+    ray class, steps) in ray order."""
+
+    def __enter__(self):
+        from gr_raytracer_tpu_torch.rendering import raytracer as rt
+
+        self.rt, self.inner_chunk, self.inner_trace = rt, rt._trace_chunk, rt.trace_pixels_chunked
+        self.passes = []
+
+        def chunk(scene, spec, row_f, col_f):
+            outs, lanes = self.inner_chunk(scene, spec, row_f, col_f)
+            self.passes[-1]["chunks"].append((outs[2].cpu(), outs[1].cpu(), outs[4].cpu()))
+            return outs, lanes
+
+        def trace(scene, row_f, col_f, chunk_size, progress=False, lax=False):
+            self.passes.append({"rows": row_f, "cols": col_f, "chunks": []})
+            return self.inner_trace(scene, row_f, col_f, chunk_size, progress, lax)
+
+        rt._trace_chunk, rt.trace_pixels_chunked = chunk, trace
+        return self
+
+    def __exit__(self, *exc):
+        self.rt._trace_chunk, self.rt.trace_pixels_chunked = self.inner_chunk, self.inner_trace
+
+    def pass1(self):
+        """(stop codes, ray classes, steps) of the first traced pass."""
+        import torch
+
+        return [torch.cat(v) for v in zip(*self.passes[0]["chunks"])]
+
+
+def tone_q99(a, b):
+    """q99 over pixels of the largest per-channel difference of the
+    tone-mapped XYZ c/(1+c) (F32_TONE_ATOL's measure)."""
+    import numpy as np
+
+    tone = lambda c: c[..., :3] / (1.0 + c[..., :3])
+    err = np.abs(tone(np.asarray(a, np.float64)) - tone(np.asarray(b, np.float64))).max(axis=-1)
+    if err.size == 0:
+        return 0.0, 0.0
+    return float(np.quantile(err, 0.99)), float(err.max())
+
+
+def stop_agreement(stop_kernel, stop_lax, class_lax):
+    """Per-ray agreement of the kernel-against-lax bar: stop codes equal; a
+    kernel SATURATED ray agrees iff the lax path classifies it HIT
+    (tests/test_pallas.py stop_agree_mask, docs/fastpath_accuracy.md); a lax
+    BUDGET ray agrees only where the kernel says HORIZON (both render
+    Captured). Every other ray disagrees."""
+    sat = stop_kernel == 7
+    return (stop_kernel == stop_lax) | (sat & (class_lax == 2)) | ((stop_lax == 5) & (stop_kernel == 1))
+
+
+def render_outcome(stop, klass):
+    """What a ray renders, to settle a disputed ray by: -1 where the kernel
+    stopped it at an opaque first hit (SATURATED: it renders that hit),
+    else its ray class plus 3 if it ends on the sky."""
+    import numpy as np
+
+    return np.where(stop == 7, -1, klass + 3 * (stop == 2))
+
+
+def same_outcome(a, b):
+    """render_outcome equality, an opaque first hit (-1) matching any ray
+    classified HIT."""
+    hit = lambda o: (o == -1) | ((o >= 0) & (o % 3 == 2))
+    return (a == b) | (hit(a) & hit(b) & ((a == -1) | (b == -1)))
+
+
+def lax_reference(ref_scene, rows, cols, disputed, kernel, lax):
+    """The rays where the kernel and the float32 lax frame disagree
+    (`disputed`, at most LAX_REF_RAYS of them, a seeded sample beyond),
+    re-traced through the lax path in float64, the precision of the
+    reference behind the kernel-against-lax bar (docs/fastpath_accuracy.md:3).
+    `kernel` and `lax` are the frames' (stop codes, ray classes). A ray is
+    counted for the lax frame where its float64 render_outcome is the lax
+    frame's and not the kernel's, for the kernel the other way round, else
+    for neither; counts over the whole frame are the sample's, scaled."""
+    import numpy as np
+    import torch
+
+    idx = np.nonzero(disputed)[0]
+    if idx.size > LAX_REF_RAYS:
+        idx = np.sort(np.random.default_rng(LAX_REF_SEED).choice(idx, LAX_REF_RAYS, replace=False))
+    r = {"disputed": int(disputed.sum()), "retraced": int(idx.size)}
+    if not idx.size:
+        return dict(r, for_lax=0.0, for_kernel=0.0, neither=0.0, seconds=0.0)
+    scene = ref_scene()
+    dev = scene.camera.position.device
+    t0 = time.perf_counter()
+    _, s = lax_trace(scene, torch.as_tensor(np.asarray(rows)[idx], device=dev, dtype=torch.float64),
+                     torch.as_tensor(np.asarray(cols)[idx], device=dev, dtype=torch.float64))
+    stop_ref = s.stop_code.cpu().numpy()
+    ref = render_outcome(stop_ref, s.ray_class.cpu().numpy())
+    k, l = (render_outcome(stop[idx], klass[idx]) for stop, klass in (kernel, lax))
+    for_lax = same_outcome(ref, l) & ~same_outcome(ref, k)
+    for_kernel = same_outcome(ref, k) & ~same_outcome(ref, l)
+    scale = r["disputed"] / idx.size
+    return dict(r, for_lax=float(for_lax.sum() * scale), for_kernel=float(for_kernel.sum() * scale),
+                neither=float((~for_lax & ~for_kernel).sum() * scale), seconds=time.perf_counter() - t0,
+                ref_stop_counts=np.bincount(stop_ref, minlength=8).tolist(),
+                lax_stop_counts=np.bincount(lax[0][idx], minlength=8).tolist(),
+                kernel_stop_counts=np.bincount(kernel[0][idx], minlength=8).tolist())
+
+
+def lax_render(scene, what):
+    """render_section(..., lax=True) of `scene`, timed: (RenderOutput, its
+    summary, ChunkOutputs)."""
+    import torch
+
+    from gr_raytracer_tpu_torch.rendering import integrator as integ
+    from gr_raytracer_tpu_torch.rendering import raytracer as rt
+
+    integ.loop_stats.clear()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    with ChunkOutputs() as chunks:
+        t0 = time.perf_counter()
+        out = rt.render_section(scene, lax=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    pass1, aa = out.stats["pass1"], out.stats.get("aa")
+    rays = pass1.rays + (aa.rays if aa else 0)
+    steps = pass1.ray_steps + (aa.ray_steps if aa else 0)
+    march = integ.loop_stats.get("march", {})
+    stops, classes, lane_steps = chunks.pass1()
+    summary = {
+        "scene": what, "frame": f"{scene.camera.rows}x{scene.camera.columns}", "route": rt._route(scene, True),
+        "seconds": secs, "pass1_s": pass1.seconds, "aa_s": aa.seconds if aa else 0.0,
+        "rays": rays, "rays_per_s": rays / secs, "accepted_steps": steps,
+        "accepted_steps_per_s": steps / secs, "longest_lane_pass1": int(lane_steps.max()),
+        "iterations": march.get("iterations"), "compactions": march.get("blocks"),
+        "lane_iterations": march.get("lane_iterations"),
+        "ms_per_iteration": 1e3 * march.get("seconds", 0.0) / max(march.get("iterations", 1), 1),
+        "raymarch": integ.loop_stats.get("raymarch"),
+        "requeue_phases": integ.loop_stats.get("requeue_phases", 0),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "stop_counts_pass1": pass1.stop_counts.tolist(), "overflow": pass1.overflow + (aa.overflow if aa else 0),
+    }
+    return out, summary, chunks
+
+
+def kernel_frame(scene):
+    """The kernel path's render_section of `scene` and its pass-1 stop
+    codes and ray classes."""
+    from gr_raytracer_tpu_torch.rendering import raytracer as rt
+
+    with ChunkOutputs() as chunks:
+        out = rt.render_section(scene)
+    stop, klass, _ = chunks.pass1()
+    return out, stop.numpy(), klass.numpy()
+
+
+def lax_against_kernel(kernel, lax, rows, cols, ref_scene, what):
+    """The kernel-against-lax bar on a frame's pass 1: `kernel` and `lax`
+    are (stop codes, ray classes, colors) of the same rays at (rows, cols).
+    Prints the stop agreement (stop_agreement) and the tone-mapped q99 over
+    the rays (and over the rays whose kernel ray does not end on the sky).
+    Held: the stop agreement with the disputed rays that the float64 lax
+    path settles for the lax frame (lax_reference: what they render), ≥
+    99 %: a ray where the float32 lax frame is at fault counts against
+    it, the kernel's own errors do not. The tone half of the bar is not held: the two
+    integrators reach an object or the sky sphere at points a fixed step
+    and an adaptive one place apart, and a bitmap texture's detail (the
+    skies of all four frames, schwarzschild.toml's disc and sphere)
+    turns that into tone differences above 0.01 at q99 (on an H100: 0.13-0.35
+    over the frames, 0.020-0.25 off the sky; the study behind the bar had
+    a checker sky, docs/fastpath_accuracy.md)."""
+    import numpy as np
+
+    (stop_k, class_k, color_k), (stop_l, class_l, color_l) = kernel, lax
+    agree = stop_agreement(stop_k, stop_l, class_l)
+    ref = lax_reference(ref_scene, rows, cols, ~agree, (stop_k, class_k), (stop_l, class_l))
+    q99, worst = tone_q99(color_l, color_k)
+    sky = (stop_k == 2).reshape(np.shape(color_k)[:-1])
+    q99_off_sky, _ = tone_q99(color_l[~sky], color_k[~sky])
+    n = stop_k.size
+    r = {"scene": what, "rays": n, "stop_agreement": float(agree.mean()),
+         "stop_agreement_with_reference": float(agree.mean() + ref["for_lax"] / n),
+         "lax_budget": int((stop_l == 5).sum()),
+         "lax_budget_kernel_codes": np.bincount(stop_k[stop_l == 5], minlength=8).tolist(),
+         "f64_reference": ref,
+         "tone_q99": q99, "tone_max": worst, "tone_q99_off_sky": q99_off_sky,
+         "sky_pixels": int(sky.sum()),
+         "bar": {"stop_agreement": F32_STOP_AGREEMENT, "tone_q99": F32_TONE_ATOL}}
+    r["ok"] = r["stop_agreement_with_reference"] >= F32_STOP_AGREEMENT
+    return r
+
+
+def frame_against_kernel(kernel, out, chunks, what, ref_scene):
+    """lax_against_kernel on a render_section frame: `kernel` the kernel
+    frame's (pass-1 stop codes, ray classes, color image), `out` and
+    `chunks` the lax frame's RenderOutput and ChunkOutputs."""
+    stop_l, class_l, _ = (v.numpy() for v in chunks.pass1())
+    first = chunks.passes[0]
+    return lax_against_kernel(kernel, (stop_l, class_l, out.color), first["rows"], first["cols"], ref_scene, what)
+
+
+def lax_compaction_check(scene):
+    """The middle LAX_CHECK_SIDE² rays of `scene` through integrate_rays for
+    LAX_CHECK_ATTEMPTS iterations, compacted and replayed from CUDA graphs
+    against one eager run of the same body over every lane: every result
+    must be equal bit for bit."""
+    import torch
+
+    from gr_raytracer_tpu_torch.rendering import camera as cam
+    from gr_raytracer_tpu_torch.rendering import integrator as integ
+    from gr_raytracer_tpu_torch.rendering import scene as scn
+
+    side, mid = LAX_CHECK_SIDE, scene.camera.rows // 2
+    r = torch.arange(mid - side // 2, mid + side // 2, device=scene.camera.position.device,
+                     dtype=scene.camera.position.dtype)
+    rows, cols = torch.meshgrid(r, r, indexing="ij")
+    x, p = cam.pixel_rays(scene.camera, rows.reshape(-1), cols.reshape(-1))
+    solver = scene.geometry.make_solver(x, p)
+    y0 = solver.initial_state(x, p)
+    runs, secs = [], []
+    for compact in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(integ.integrate_rays(scene.geometry, solver, scene.integration, y0, scn._segment_fn(scene),
+                                         scn.EVENT_WIDTH, attempts_budget=LAX_CHECK_ATTEMPTS, finalize=False,
+                                         compact=compact))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    equal = {k: bool(torch.equal(a, b)) for (k, a), b in zip(runs[0]._asdict().items(), runs[1])}
+    return {"rays": side * side, "attempts": LAX_CHECK_ATTEMPTS, "equal": equal,
+            "bit_identical": all(equal.values()), "compacted_s": secs[0], "eager_s": secs[1],
+            "running_after": int((runs[0].stop_code == 0).sum()), "events": int(runs[0].ev_count.sum())}
+
+
+def lax_trace(scene, rows, cols):
+    """The RKF45 path on `scene`'s rays at (rows, cols): (IntegrationResult,
+    RaySamples) in ray order."""
+    from gr_raytracer_tpu_torch.rendering import camera as cam
+    from gr_raytracer_tpu_torch.rendering import integrator as integ
+    from gr_raytracer_tpu_torch.rendering import scene as scn
+    from gr_raytracer_tpu_torch.rendering.redshift import ray_frequency_data
+
+    x, p = cam.pixel_rays(scene.camera, rows, cols)
+    solver = scene.geometry.make_solver(x, p)
+    freq = ray_frequency_data(scene.geometry, x, p, scene.camera.velocity)
+    res = integ.integrate_rays(scene.geometry, solver, scene.integration, solver.initial_state(x, p),
+                               scn._segment_fn(scene), scn.EVENT_WIDTH)
+    return res, scn.finish_rays(scene, freq, solver, res)
+
+
+def _lax_cpu_trace(rows, cols, path):
+    """Phase 34's CPU side, in a process of its own: kerr.toml's rays at
+    (rows, cols) in float64 through the RKF45 path; saves the results."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    torch.set_num_threads(1)
+    scene = lax_scene(KERR_TOML, FRAME, KERR_CAMERA_KW, torch.float64, device="cpu")
+    t0 = time.perf_counter()
+    res, s = lax_trace(scene, torch.as_tensor(rows), torch.as_tensor(cols))
+    np.savez(path, y=res.y.numpy(), stop=res.stop_code.numpy(), ev_count=res.ev_count.numpy(),
+             ev_data=res.ev_data.numpy(), steps=res.steps.numpy(), color=s.color.numpy(),
+             seconds=time.perf_counter() - t0)
+
+
+def start_lax_cpu_trace(lane_steps, tmp):
+    """Picks phase 34's rays from kerr.toml's lax pass 1 (`lane_steps` of its
+    1000² pixels in row-major order): the LAX_F64_LONGEST rays with the most
+    accepted steps and LAX_F64_RAYS − LAX_F64_LONGEST seeded others. Starts
+    their CPU trace in a spawned process; returns (rows, cols, process,
+    result path)."""
+    import multiprocessing
+
+    import numpy as np
+
+    steps = np.asarray(lane_steps)
+    longest = np.argsort(steps, kind="stable")[-LAX_F64_LONGEST:]
+    rest = np.setdiff1d(np.arange(steps.size), longest)
+    others = np.random.default_rng(LAX_F64_SEED).choice(rest, LAX_F64_RAYS - LAX_F64_LONGEST, replace=False)
+    idx = np.concatenate([longest, others])
+    rows, cols = (idx // FRAME).astype(np.float64), (idx % FRAME).astype(np.float64)
+    path = os.path.join(tmp, "lax_cpu.npz")
+    # A daemon: it ends with this process whatever happens.
+    proc = multiprocessing.get_context("spawn").Process(target=_lax_cpu_trace, args=(rows, cols, path), daemon=True)
+    proc.start()
+    return rows, cols, proc, path, steps[longest]
+
+
+def lax_card_vs_cpu(rows, cols, proc, path, longest_f32):
+    """Phase 34: the same rays through the RKF45 path in float64 on the card
+    and on the CPU (the spawned process): stop codes and event counts
+    equal on ≥ F64_STOP_AGREEMENT of them, event payloads and colors of
+    those within F64_RTOL of each lane's scale. Their final states are
+    printed, not held at F64_RTOL: the controller's error estimate cancels
+    to ~1e-8 of its terms, so an ulp between the card's and the CPU's
+    transcendentals moves the step sizes by ~1e-9 and the end of a long
+    march by more (on an H100: up to 3.5e-8 of a lane's scale, 84 of 512
+    lanes over 1e-9; as the port against the JAX package,
+    tests/test_torch_rkf45.py)."""
+    import numpy as np
+    import torch
+
+    scene = lax_scene(KERR_TOML, FRAME, KERR_CAMERA_KW, torch.float64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, s = lax_trace(scene, torch.as_tensor(rows, device="cuda"), torch.as_tensor(cols, device="cuda"))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc.join()
+    wait_s = time.perf_counter() - t0
+    if proc.exitcode != 0:
+        fail(f"phase 34: the CPU trace exited with {proc.exitcode}")
+    cpu = np.load(path)
+    stop, count = res.stop_code.cpu().numpy(), res.ev_count.cpu().numpy()
+    agree = (stop == cpu["stop"]) & (count == cpu["ev_count"])
+
+    def lane_rel(a, b):
+        a, b = np.asarray(a, np.float64).reshape(a.shape[0], -1), np.asarray(b, np.float64).reshape(b.shape[0], -1)
+        fin = np.isfinite(a) & np.isfinite(b)
+        scale = np.maximum(np.abs(np.where(fin, a, 0.0)).max(axis=1), 1e-300)
+        return np.where(fin, np.abs(a - b), 0.0).max(axis=1) / scale
+
+    y_err = lane_rel(res.y.cpu().numpy(), cpu["y"])[agree]
+    ev_err = lane_rel(res.ev_data.cpu().numpy(), cpu["ev_data"])[agree]
+    c_err = lane_rel(s.color.cpu().numpy(), cpu["color"])[agree]
+    r = {"rays": int(stop.size), "longest_f32_steps": [int(longest_f32.min()), int(longest_f32.max())],
+         "card_s": card_s, "cpu_s": float(cpu["seconds"]), "cpu_wait_s": wait_s,
+         "steps_max_card": int(res.steps.max()), "agreement": float(agree.mean()),
+         "state_rel_err_max": float(y_err.max(initial=0.0)), "payload_rel_err_max": float(ev_err.max(initial=0.0)),
+         "color_rel_err_max": float(c_err.max(initial=0.0)),
+         "state_lanes_over_rtol": int((y_err > F64_RTOL).sum()),
+         "stop_counts": np.bincount(stop, minlength=8).tolist(),
+         "bar": {"agreement": F64_STOP_AGREEMENT, "rtol": F64_RTOL}}
+    r["ok"] = (r["agreement"] >= F64_STOP_AGREEMENT and r["payload_rel_err_max"] <= F64_RTOL
+               and r["color_rel_err_max"] <= F64_RTOL)
+    return r
+
+
+def split_scene_objects():
+    """kerr-volumetric-streaky.toml's gas disc and kerr-sphere.toml's sphere
+    (radius 3 at the origin, inside the disc's 4.05 hole), as loader
+    tables."""
+    from gr_raytracer_tpu_torch import config as tcfg
+
+    gas = tcfg.load_config(VOL_TOML).objects
+    sphere = [o for o in tcfg.load_config(KERR_SPHERE_TOML).objects if o["kind"] == "Sphere"]
+    return tuple(gas) + tuple(sphere)
+
+
+def split_phase(ops):
+    """Phase 35: the split path with K5 on it. Renders the gas disc beside
+    the sphere at SPLIT_SIZE² in float32 with AA through the kernel
+    geometric pass (K1) and K5; holds SPLIT_BATCH lanes of its first K5
+    launch against raymarch_plain bit for bit (at VOL_COMPARE_STEPS
+    samples, as phase 14); and holds pass 1 against the same rays traced
+    with lax=True by the kernel-against-lax bar (lax_against_kernel)."""
+    import torch
+
+    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+    from gr_raytracer_tpu_torch.ops import volumetric_march as vm
+    from gr_raytracer_tpu_torch.rendering import raytracer as rt
+
+    scene = lax_scene(VOL_TOML, SPLIT_SIZE, VOL_CAMERA_KW, torch.float32, objects=split_scene_objects())
+    if rt._route(scene, lax=False) != "split":
+        fail(f"phase 35: the scene does not take the split path: {rt._route(scene, lax=False)}")
+    captured = []
+    inner = vm.raymarch
+
+    def raymarch(spec, *lanes):
+        if not captured:
+            # SPLIT_BATCH lanes spread over the launch's march lengths.
+            n = lanes[0].shape[0]
+            idx = torch.linspace(0, n - 1, min(SPLIT_BATCH, n), device=lanes[0].device).long()
+            captured.append((spec, tuple(v[idx].contiguous() for v in lanes)))
+        return inner(spec, *lanes)
+
+    gm.launches = vm.launches = 0
+    vm.launch_timer, gm.launch_timer = [], []
+    vm.raymarch = raymarch
+    try:
+        with RaymarchSamples() as marched, ChunkOutputs() as kchunks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = rt.render_section(scene)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        vm.raymarch = inner
+    k5_launches, k1_launches = vm.launches, gm.launches
+    k5_ms = sum(s.elapsed_time(e) for s, e in vm.launch_timer)
+    vm.launch_timer = gm.launch_timer = None
+    if k5_launches == 0 or k1_launches == 0 or not captured:
+        fail(f"phase 35: the split render launched K1 {k1_launches} and K5 {k5_launches} times")
+    pass1, aa = out.stats["pass1"], out.stats["aa"]
+    samples = pass1.vol_samples + aa.vol_samples
+    spec, lanes = captured[0]
+    cut = spec._replace(max_steps=VOL_COMPARE_STEPS)
+    got, n_got = vm.raymarch(cut, *lanes)
+    ref, n_ref = vm.raymarch_plain(cut, *lanes)
+    bit = bool(torch.equal(got, ref) and torch.equal(n_got, n_ref))
+    r = {"frame": f"{SPLIT_SIZE}x{SPLIT_SIZE}", "seconds": secs, "k1_launches": k1_launches,
+         "k5_launches": k5_launches, "k5_ms": k5_ms, "k5_samples": samples,
+         "gas_lanes": pass1.vol_lanes + aa.vol_lanes, "gas_emitting": pass1.vol_emitting + aa.vol_emitting,
+         "k5_bound_ms": raymarch_bound_ms(samples, pass1.vol_lanes + aa.vol_lanes, ops, torch.float32)[0],
+         "k5_batch_use": marched.batch_use()["frame"], "overflow": pass1.overflow + aa.overflow,
+         "batch": {"lanes": int(lanes[0].shape[0]), "samples": VOL_COMPARE_STEPS, "bit_identical": bit,
+                   "max_abs_err": float((got - ref).abs().max()) if got.numel() else 0.0},
+         "stop_counts_pass1": pass1.stop_counts.tolist()}
+    print(json.dumps({"split_kernel_frame": r}), flush=True)
+    # Against the lax path on pass 1's rays (the AA pass traces jittered
+    # rays through the same driver).
+    import numpy as np
+
+    from gr_raytracer_tpu_torch.rendering import integrator as integ
+
+    rr, cc = np.meshgrid(np.arange(SPLIT_SIZE, dtype=np.float64), np.arange(SPLIT_SIZE, dtype=np.float64),
+                         indexing="ij")
+    rr, cc = rr.ravel(), cc.ravel()
+    with ChunkOutputs() as kchunks:
+        k_color, _, _, _ = rt.trace_pixels_chunked(scene, rr, cc, rt.CHUNK_SIZE)
+    integ.loop_stats.clear()
+    with ChunkOutputs() as lchunks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l_color, _, _, l_stats = rt.trace_pixels_chunked(scene, rr, cc, rt.CHUNK_SIZE, lax=True)
+        torch.cuda.synchronize()
+        lax_s = time.perf_counter() - t0
+    stop_k, class_k, _ = (v.numpy() for v in kchunks.pass1())
+    stop_l, class_l, steps_l = (v.numpy() for v in lchunks.pass1())
+    against = lax_against_kernel(
+        (stop_k, class_k, k_color), (stop_l, class_l, l_color), rr, cc,
+        lambda: lax_scene(VOL_TOML, SPLIT_SIZE, VOL_CAMERA_KW, torch.float64, objects=split_scene_objects()),
+        "split scene")
+    r["against_lax"] = dict(against, lax_seconds=lax_s, lax_vol_lanes=l_stats.vol_lanes,
+                            lax_accepted_steps=l_stats.ray_steps, lax_longest_lane=int(steps_l.max()),
+                            loops=dict(integ.loop_stats))
+    r["ok"] = bit and against["ok"]
+    return r
+
+
+def lax_phases():
+    """Phases 33 and 34; returns ({scene: frame summary}, {check: result})."""
+    import torch
+
+    from gr_raytracer_tpu_torch.rendering import raytracer as rt
+
+    phase("33. the lax main path: render_section(..., lax=True) of kerr.toml, schwarzschild.toml and kerr-bl.toml")
+    frames = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = lax_scene(KERR_TOML, FRAME, KERR_CAMERA_KW, torch.float32)
+        kernel, stop_k, class_k = kernel_frame(scene)
+        out, summary, chunks = lax_render(scene, "kerr.toml")
+        print(json.dumps({"lax_frame": summary}), flush=True)
+        # Phase 34's CPU side runs while the card works on the rest.
+        cpu_job = start_lax_cpu_trace(chunks.pass1()[2].numpy(), tmp)
+        summary["against_kernel"] = frame_against_kernel(
+            (stop_k, class_k, kernel.color), out, chunks, "kerr.toml",
+            lambda: lax_scene(KERR_TOML, FRAME, KERR_CAMERA_KW, torch.float64))
+        frames["kerr.toml"] = summary
+        print(json.dumps({"lax_against_kernel": summary["against_kernel"]}), flush=True)
+        if not summary["against_kernel"]["ok"]:
+            fail(f"the lax kerr.toml frame misses the kernel-against-lax bar: {summary['against_kernel']}")
+        compaction = lax_compaction_check(scene)
+        print(json.dumps({"lax_compaction": compaction}), flush=True)
+        if not compaction["bit_identical"]:
+            fail(f"the compacted lax march differs from one eager run: {compaction}")
+        del out, chunks, scene, kernel
+        for name, toml, size, camera_kw, why in LAX_FRAMES:
+            scene = lax_scene(toml, size, camera_kw, torch.float32)
+            kernel, stop_k, class_k = kernel_frame(scene)
+            out, summary, chunks = lax_render(scene, name)
+            summary["size_why"] = why
+            summary["against_kernel"] = frame_against_kernel(
+                (stop_k, class_k, kernel.color), out, chunks, name,
+                lambda: lax_scene(toml, size, camera_kw, torch.float64))
+            frames[name] = summary
+            print(json.dumps({"lax_frame": summary}), flush=True)
+            if not summary["against_kernel"]["ok"]:
+                fail(f"the lax {name} frame misses the kernel-against-lax bar: {summary['against_kernel']}")
+            del out, chunks, scene, kernel
+
+        phase("34. the lax path in float64 on the card against the CPU")
+        card_vs_cpu = lax_card_vs_cpu(*cpu_job)
+        print(json.dumps({"lax_card_vs_cpu": card_vs_cpu}), flush=True)
+        if not card_vs_cpu["ok"]:
+            fail(f"the lax path on the card disagrees with the CPU: {card_vs_cpu}")
+    return frames, {"compaction": compaction, "card_vs_cpu": card_vs_cpu}
+
+
 def main():
     import math
 
@@ -3510,11 +3986,13 @@ def main():
     sphere_sweeps, sphere_fit = sphere_gradient_phases(k2_sass)
     resumed = resume_phase()
 
-    phase("31. the cost of -fmad=false: K5 and K7 built with FMA contraction")
-    fma_cost = fma_cost_phase()
-    print(json.dumps(fma_cost), flush=True)
-    if not fma_cost["ok"]:
-        fail(f"the FMA build's outputs are not finite: {fma_cost}")
+
+    lax_frames, lax_checks = lax_phases()
+    phase("35. the split path with K5: kerr-volumetric-streaky's gas disc beside kerr-sphere.toml's sphere")
+    split = split_phase(vol_ops)
+    print(json.dumps({"split": split}), flush=True)
+    if not split["ok"]:
+        fail(f"the split path disagrees: {split}")
 
     phase("32. kernels")
     prod = variants[(torch.float32, False)]
@@ -3535,12 +4013,13 @@ def main():
         "source": "gr_raytracer_tpu_torch/csrc/kerr_rk4_march.cu",
         "replaces": "gr_raytracer_tpu/ops/geodesic_pallas.py:790",
         "launches": (launches + fit["k1_launches"] + vol_main["k1_launches"] + vol_fit["launches"]["k1"]
-                     + sphere_renders["kerr-sphere.toml"]["launches"] + sphere_fit["k1_launches"]),
+                     + sphere_renders["kerr-sphere.toml"]["launches"] + sphere_fit["k1_launches"]
+                     + split["k1_launches"]),
         "launches_by_path": {"render": launches, "fit": fit["k1_launches"],
                              "render_volumetric": vol_main["k1_launches"],
                              "fit_volumetric": vol_fit["launches"]["k1"],
                              "render_kerr_sphere": sphere_renders["kerr-sphere.toml"]["launches"],
-                             "fit_kerr_sphere": sphere_fit["k1_launches"]},
+                             "fit_kerr_sphere": sphere_fit["k1_launches"], "render_split": split["k1_launches"]},
         "max_abs_err": max(prod["max_abs_err"], variants[(torch.float32, True)]["max_abs_err"],
                            *(r["max_abs_err"] for (k, _, dt), r in sphere_marches.items()
                              if k == "K1" and dt == torch.float32)),
@@ -3635,9 +4114,10 @@ def main():
         "route": "cuda",
         "source": "gr_raytracer_tpu_torch/csrc/vol_raymarch.cu",
         "replaces": "gr_raytracer_tpu/ops/volumetric_pallas.py:782",
-        "launches": vol_main["k5_launches"] + bl_vol["k5_launches"],
+        "launches": vol_main["k5_launches"] + bl_vol["k5_launches"] + split["k5_launches"],
         "launches_by_path": {"render_volumetric": vol_main["k5_launches"],
-                             "render_bl_volumetric": bl_vol["k5_launches"]},
+                             "render_bl_volumetric": bl_vol["k5_launches"],
+                             "render_split": split["k5_launches"]},
         "max_abs_err": raymarch["max_abs_err"],
         "ms": raymarch["kernel_ms"],
         "plain_ms": raymarch["plain_ms"],
@@ -3647,12 +4127,12 @@ def main():
         "bound_by": raymarch["bound_by"],
         "library_ms": None,
         "ms_f64": raymarches[torch.float64]["kernel_ms"],
-        "ms_per_frame": {"frame_500": vol_main["k5_ms"], "bl_256": bl_vol["k5_ms"]},
+        "ms_per_frame": {"frame_500": vol_main["k5_ms"], "bl_256": bl_vol["k5_ms"], "split_256": split["k5_ms"]},
+        "launches_per_split_frame": split["k5_launches"],
         "batch_use": {"chunk": raymarch["batch_use"], "frame_500": vol_main["k5_batch_use"]["frame"],
                       "bl_256": bl_vol["k5_batch_use"]["frame"], "fit_256": vol_fit["k5_batch_use"]},
         "critical_path": {"f32": raymarch["critical_path"], "f64": raymarches[torch.float64]["critical_path"]},
         "registers": registers.get("vol_raymarch.cu"),
-        "fma": fma_cost["K5"],
     }, {
         "name": "vol_raymarch_raw",
         "route": "cuda",
@@ -3691,7 +4171,6 @@ def main():
         "ms_per_fit_step": vol_fit["k7_ms_per_step"],
         "full_budget_fd_rel_err": k7_fd["rel_err"],
         "registers": registers.get("vol_adjoint.cu"),
-        "fma": fma_cost["K7"],
     }]
     print(f"wall {time.perf_counter() - t_all:.1f}s")
     print(card)

@@ -9,6 +9,10 @@ from __future__ import annotations
 
 import torch
 
+# Radius, in units of r_s, inside which a photon that used up its step budget
+# is classified as trapped.
+TRAPPED_ORBIT_RADIUS_FACTOR = 5.0
+
 
 def lower(g, v):
     """g_{μν} v^ν: [..., n, n] and [..., n] → [..., n], the products summed
@@ -42,7 +46,10 @@ class Geometry:
     """Frame and observer methods shared by the geometries. A subclass
     provides chart, signature(), metric(x), tetrad(x),
     radial_coordinate(x, chart), orbit_coefficients_at_radius(r),
-    axial_killing(x), stationary_velocity(x) and make_solver(x0, p0)."""
+    axial_killing(x), stationary_velocity(x), make_solver(x0, p0) and, for
+    the RKF45 path, inside_horizon(x) and closed_orbit(x, step_index,
+    max_steps) (the trapped-photon test at budget exhaustion); the solver
+    gives rhs(y), initial_state(x, p) and momentum(y)."""
 
     @property
     def spin(self):
@@ -52,6 +59,10 @@ class Geometry:
     def inner_product(self, x, v, w):
         """g_{μν} v^μ w^ν at x."""
         return dot(v, lower(self.metric(x), w))
+
+    def constants_of_motion(self, x, p):
+        """name -> [...] conserved scalars, for drift monitoring."""
+        return {}
 
     def lorentz_transformation(self, x, velocity):
         """Boost matrix mapping the tetrad frame to the observer with

@@ -2,8 +2,10 @@
 (port of gr_raytracer_tpu/geometry/kerr.py).
 
 g_{μν} = η_{μν} + f k_μ k_ν with analytic inverse g^{μν} = η^{μν} − f k^μ k^ν.
-The state carries the covariant momentum; the march's right-hand side is the
-analytic ∂H/∂x of ops/geodesic_march.py.
+The state carries the covariant momentum. Geodesics are Hamiltonian,
+H = ½ g^{αβ} p_α p_β: ẋ^μ = g^{μν} p_ν and ṗ_μ = −∂H/∂x^μ, the latter in
+the closed form that the march kernel's plain version uses
+(ops/geodesic_march.py `_rhs`; the JAX package differentiates H).
 """
 
 from __future__ import annotations
@@ -14,13 +16,23 @@ import torch
 
 from gr_raytracer_tpu_torch.geometry import chart as charts
 from gr_raytracer_tpu_torch.geometry import circular_orbit
-from gr_raytracer_tpu_torch.geometry.base import Geometry, gram_schmidt, lower, unit_time_vector
+from gr_raytracer_tpu_torch.geometry.base import (
+    TRAPPED_ORBIT_RADIUS_FACTOR,
+    Geometry,
+    gram_schmidt,
+    lower,
+    unit_time_vector,
+)
 
 _ETA_DIAG = (-1.0, 1.0, 1.0, 1.0)
 
 
 def _eta(x):
-    return torch.diag(torch.tensor(_ETA_DIAG, dtype=x.dtype, device=x.device))
+    # Filled on the device (no host copy), so that it can be captured in a
+    # CUDA graph (rendering/integrator.py).
+    diag = torch.ones(4, dtype=x.dtype, device=x.device)
+    diag.narrow(0, 0, 1).fill_(_ETA_DIAG[0])
+    return torch.diag(diag)
 
 
 def _f_and_k(radius, a, x):
@@ -57,6 +69,12 @@ class KerrSolver:
     @property
     def chart(self):
         return charts.CARTESIAN
+
+    def rhs(self, y):
+        """dy/dλ for y = [x | p_cov], [..., 8]."""
+        from gr_raytracer_tpu_torch.ops.geodesic_march import _rhs
+
+        return _rhs(self.radius, self.a, y.movedim(-1, 0)).movedim(0, -1)
 
     def initial_state(self, x, p):
         """Lower the index: the state carries covariant momentum."""
@@ -104,6 +122,17 @@ class Kerr(Geometry):
         vectors = torch.cat([e_t[..., None, :], eye[..., 1:, :]], dim=-2)
         return gram_schmidt(self, x, vectors)
 
+    def inside_horizon(self, x):
+        m = 0.5 * self.radius
+        r = torch.sqrt(charts.bl_radius_sq_from_cartesian(self.a, x[..., 1], x[..., 2], x[..., 3]))
+        rp = m + torch.sqrt(torch.clamp(m * m - self.a * self.a, min=0.0))
+        over_extremal = torch.abs(self.a) > m
+        return (r <= rp + self.horizon_epsilon) & ~over_extremal
+
+    def closed_orbit(self, x, step_index, max_steps):
+        r = self.radial_coordinate(x, charts.CARTESIAN)
+        return (step_index == max_steps - 1) & (r < TRAPPED_ORBIT_RADIUS_FACTOR * self.radius)
+
     def radial_coordinate(self, x, chart):
         if chart == charts.CARTESIAN:
             return torch.sqrt(
@@ -138,3 +167,11 @@ class Kerr(Geometry):
 
     def make_solver(self, x0, p0):
         return KerrSolver(radius=self.radius, a=self.a)
+
+    def constants_of_motion(self, x, p):
+        """E = −p_t (covariant) and L_z = −y p_x + x p_y."""
+        p_cov = lower(kerr_metric(self.radius, self.a, x), p)
+        return {
+            "E": -p_cov[..., 0],
+            "L_z": -x[..., 2] * p_cov[..., 1] + x[..., 1] * p_cov[..., 2],
+        }

@@ -7,9 +7,9 @@ The null geodesic equations decouple in Mino time λ with the conserved
     state = (t, r, θ, φ, v_r, v_θ, 0, 0),  v = d(·)/dλ
     dv_r = R'(r)/2,  dv_θ = Θ'(θ)/2,  dt/dλ and dφ/dλ algebraic.
 
-The march itself is ops/geodesic_march.py::kerr_bl_rk4_march; this module
-holds the metric, the solver's state packing and momentum, the ZAMO frame
-and the conserved scalars.
+The kernel path's march is ops/geodesic_march.py::kerr_bl_rk4_march; this
+module holds the metric, the solver (its right-hand side serves the RKF45
+path), the ZAMO frame and the conserved scalars.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 
 from gr_raytracer_tpu_torch.geometry import chart as charts
 from gr_raytracer_tpu_torch.geometry import circular_orbit
-from gr_raytracer_tpu_torch.geometry.base import Geometry, gram_schmidt, lower
+from gr_raytracer_tpu_torch.geometry.base import TRAPPED_ORBIT_RADIUS_FACTOR, Geometry, gram_schmidt, lower
 
 # Floor for sin²θ in the Carter-constant axis guard.
 SIN2_FLOOR = 1e-28
@@ -99,12 +99,25 @@ def potential_r(r, r_s, a, e, l_z, q):
     return p_r * p_r - _delta(r, r_s, a) * (lae * lae + q)
 
 
+def potential_r_derivative(r, r_s, a, e, l_z, q):
+    """R'(r)."""
+    p_r = (r * r + a * a) * e - a * l_z
+    lae = l_z - a * e
+    return 4.0 * r * e * p_r - (2.0 * r - r_s) * (lae * lae + q)
+
+
 def potential_theta(theta, a, e, l_z, q):
     """Θ(θ) for null geodesics: Q + a²E²cos²θ − L_z²cos²θ/sin²θ. Diverges at
     the poles by design; the march's NaN stop handles rays that reach the
     axis."""
     ct, st = torch.cos(theta), torch.sin(theta)
     return q + a * a * e * e * ct * ct - l_z * l_z * ct * ct / (st * st)
+
+
+def potential_theta_derivative(theta, a, e, l_z, q):
+    """Θ'(θ)."""
+    ct, st = torch.cos(theta), torch.sin(theta)
+    return -2.0 * a * a * e * e * ct * st + 2.0 * l_z * l_z * ct / (st * st * st)
 
 
 @dataclass(frozen=True)
@@ -127,6 +140,15 @@ class KerrBLSolver:
         dt = (r * r + self.a * self.a) / dl * p_r + self.a * (self.l_z - self.a * self.e * sin2)
         dphi = self.a / dl * p_r + self.l_z / sin2 - self.a * self.e
         return dt, dphi
+
+    def rhs(self, y):
+        """Mino-time dy/dλ, [..., 8]: (dt, v_r, v_θ, dφ, R'/2, Θ'/2, 0, 0)."""
+        r, theta = y[..., 1], y[..., 2]
+        dt, dphi = self._dt_dphi(r, theta)
+        dv_r = potential_r_derivative(r, self.radius, self.a, self.e, self.l_z, self.q) / 2.0
+        dv_theta = potential_theta_derivative(theta, self.a, self.e, self.l_z, self.q) / 2.0
+        zero = torch.zeros_like(dv_r)
+        return torch.stack([dt, y[..., 4], y[..., 5], dphi, dv_r, dv_theta, zero, zero], dim=-1)
 
     def initial_state(self, x, p):
         """Mino-time velocities from the potentials, with the signs of the BL
@@ -182,6 +204,15 @@ class KerrBL(Geometry):
         e_r = torch.stack([zero, one, zero, zero], dim=-1)
         return gram_schmidt(self, x, torch.stack([e_t, e_ph, e_th, e_r], dim=-2))
 
+    def inside_horizon(self, x):
+        m = 0.5 * self.radius
+        rp = m + torch.sqrt(torch.clamp(m * m - self.a * self.a, min=0.0))
+        over_extremal = torch.abs(self.a) > m
+        return (x[..., 1] <= rp + self.horizon_epsilon) & ~over_extremal
+
+    def closed_orbit(self, x, step_index, max_steps):
+        return (step_index == max_steps - 1) & (x[..., 1] < TRAPPED_ORBIT_RADIUS_FACTOR * self.radius)
+
     def radial_coordinate(self, x, chart):
         if chart == charts.CARTESIAN:
             return torch.sqrt(
@@ -228,3 +259,7 @@ class KerrBL(Geometry):
     def make_solver(self, x0, p0):
         e, l_z, q = self.conserved_from_bl(x0, p0)
         return KerrBLSolver(radius=self.radius, a=self.a, e=e, l_z=l_z, q=q)
+
+    def constants_of_motion(self, x, p):
+        e, l_z, q = self.conserved_from_bl(x, p)
+        return {"E": e, "L_z": l_z, "Q": q}

@@ -16,7 +16,43 @@ import torch
 
 from gr_raytracer_tpu_torch.geometry import chart as charts
 from gr_raytracer_tpu_torch.geometry import circular_orbit
-from gr_raytracer_tpu_torch.geometry.base import Geometry
+from gr_raytracer_tpu_torch.geometry.base import TRAPPED_ORBIT_RADIUS_FACTOR, Geometry
+
+
+@dataclass(frozen=True)
+class SchwarzschildSolver:
+    radius: torch.Tensor
+
+    @property
+    def chart(self):
+        return charts.SPHERICAL
+
+    def rhs(self, y):
+        """The geodesic equations, [..., 8] -> [..., 8]."""
+        r, theta = y[..., 1], y[..., 2]
+        v_t, v_r, v_theta, v_phi = y[..., 4], y[..., 5], y[..., 6], y[..., 7]
+        a = 1.0 - self.radius / r
+        a_prime = self.radius / (r * r)
+        ap_over_a = a_prime / a
+        st, ct = torch.sin(theta), torch.cos(theta)
+        acc_t = -ap_over_a * v_t * v_r
+        acc_r = (
+            -0.5 * a * a_prime * v_t * v_t
+            + 0.5 * ap_over_a * v_r * v_r
+            + a * r * (v_theta * v_theta + v_phi * v_phi * st * st)
+        )
+        # A tensor dividend: torch takes a Python scalar over a tensor as the
+        # tensor's reciprocal times the scalar, one more rounding.
+        two_over_r = torch.full_like(r, 2.0) / r
+        acc_theta = -two_over_r * v_r * v_theta + st * ct * v_phi * v_phi
+        acc_phi = -two_over_r * v_phi * v_r - 2.0 * (ct / st) * v_theta * v_phi
+        return torch.stack([v_t, v_r, v_theta, v_phi, acc_t, acc_r, acc_theta, acc_phi], dim=-1)
+
+    def initial_state(self, x, p):
+        return torch.cat([x, p], dim=-1)
+
+    def momentum(self, y):
+        return y[..., 4:8]
 
 
 @dataclass(frozen=True)
@@ -63,6 +99,12 @@ class Schwarzschild(Geometry):
         e_z = torch.stack([-sq / a, torch.ones_like(r), zero, zero], dim=-1)
         return torch.stack([e_t, e_x, e_y, e_z], dim=-2)
 
+    def inside_horizon(self, x):
+        return x[..., 1] <= self.radius + self.horizon_epsilon
+
+    def closed_orbit(self, x, step_index, max_steps):
+        return (step_index == max_steps - 1) & (x[..., 1] < TRAPPED_ORBIT_RADIUS_FACTOR * self.radius)
+
     def radial_coordinate(self, x, chart):
         if chart == charts.CARTESIAN:
             return torch.sqrt(x[..., 1] * x[..., 1] + x[..., 2] * x[..., 2] + x[..., 3] * x[..., 3])
@@ -86,7 +128,11 @@ class Schwarzschild(Geometry):
         return e_phi
 
     def make_solver(self, x0, p0):
-        raise NotImplementedError(
-            "the Schwarzschild RKF45 solver is not yet ported; the kernel path marches "
-            "Schwarzschild as KerrBL with a = 0"
-        )
+        return SchwarzschildSolver(radius=self.radius)
+
+    def constants_of_motion(self, x, p):
+        """E = a v^t and L_z = −r² sin²θ v^φ."""
+        r, theta = x[..., 1], x[..., 2]
+        a = 1.0 - self.radius / r
+        st = torch.sin(theta)
+        return {"E": a * p[..., 0], "L_z": -r * r * (st * st) * p[..., 3]}

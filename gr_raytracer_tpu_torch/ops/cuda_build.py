@@ -8,9 +8,8 @@ changed source or header rebuilds and an unchanged one loads at once.
 `build_all` starts one nvcc per source, all at the same time.
 
 Every path of the port loads the libraries built with NVCC_FLAGS.
-`load(source, flags)` with another flag set (NVCC_FLAGS_FMA) builds that
-source alone into a subdirectory of its own, for measurements only
-(chip_smoke.py's cost of -fmad=false).
+`load(source, flags)` with another flag set builds that source alone into
+a subdirectory of its own.
 """
 
 from __future__ import annotations
@@ -34,9 +33,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# NVCC_FLAGS with FMA contraction: a measurement build, not bit-identical to
-# the plain versions.
-NVCC_FLAGS_FMA = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
 SOURCES = (
     "kerr_rk4_march.cu", "kerr_ks_adjoint.cu", "kerr_bl_march.cu", "kerr_bl_adjoint.cu",
     "vol_raymarch.cu", "vol_adjoint.cu",

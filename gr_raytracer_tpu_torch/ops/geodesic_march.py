@@ -38,8 +38,8 @@ MAX_DISCS = 8  # kMaxDiscs in the CUDA source
 MAX_SPHERES = 8  # kMaxSpheres in csrc/sphere_events.cuh
 MAX_VOLS = 8  # kMaxVols in csrc/vol_events.cuh
 MIN_INTERSECTION_T = 1e-9  # objects/volumetric_disc.py
-# Lanes are re-gathered every this many iterations of the plain march, so
-# finished lanes stop costing work.
+# Lanes are re-gathered every this many iterations of the plain march on the
+# CPU, so finished lanes stop costing work (_march_lanes).
 _COMPACT_EVERY = 32
 
 # Launches of the CUDA kernels K1 and K3 (the plain versions do not count).
@@ -227,6 +227,18 @@ def _put(lanes, idx, sub):
             t[idx] = s
 
 
+def _store_event(ev_kind, ev_data, ev_count, ev_ovf, lanes, hit, kind, payload):
+    """Append `payload` [N, 12] as an event of `kind` on the `hit` lanes
+    that have a free slot, through masks (no host sync, so a CUDA graph can
+    capture it); a hit with no free slot sets its lane's overflow flag.
+    Returns (ev_count, ev_ovf)."""
+    store = hit & (ev_count < ev_kind.shape[1])
+    slot = torch.clamp(ev_count, max=ev_kind.shape[1] - 1).long()
+    ev_kind[lanes, slot] = torch.where(store, kind, ev_kind[lanes, slot])
+    ev_data[lanes, slot] = torch.where(store[:, None], payload, ev_data[lanes, slot])
+    return ev_count + store.to(ev_count.dtype), ev_ovf | (hit & ~store)
+
+
 def _store_disc_events(discs, crossing, px, py, p_interp, seg, ev_kind, ev_data, ev_count, ev_ovf):
     """Append one event per hitting lane and disc into the K-slot buffers."""
     rr = torch.sqrt(px * px + py * py)
@@ -235,18 +247,12 @@ def _store_disc_events(discs, crossing, px, py, p_interp, seg, ev_kind, ev_data,
     lanes = torch.arange(px.shape[0], device=px.device)
     for disc in discs:
         hit = crossing & (rr >= disc.inner) & (rr <= disc.outer)
-        width = rr.new_tensor(disc.outer) - rr.new_tensor(disc.inner)
+        width = rr.new_full((), disc.outer) - rr.new_full((), disc.inner)
         r_norm = (rr - disc.inner) / width
         u = 0.5 + 0.5 * r_norm * torch.cos(phi)
         v = 0.5 + 0.5 * r_norm * torch.sin(phi)
         payload = torch.stack([px, py, zero, *p_interp, u, v, *seg], dim=-1)  # [N, 12]
-        store = hit & (ev_count < ev_kind.shape[1])
-        sel = lanes[store]
-        slot = ev_count[store].long()
-        ev_kind[sel, slot] = disc.kind
-        ev_data[sel, slot] = payload[store]
-        ev_count = ev_count + store.to(ev_count.dtype)
-        ev_ovf = ev_ovf | (hit & ~store)
+        ev_count, ev_ovf = _store_event(ev_kind, ev_data, ev_count, ev_ovf, lanes, hit, disc.kind, payload)
     return ev_count, ev_ovf
 
 
@@ -257,8 +263,8 @@ def _store_sphere_events(spheres, gate, s3, e3, p_prev, p_new, ev_kind, ev_data,
     preferred, θ of the local spherical UV is atan2(√max(1 − c², 0), c),
     as in the kernel."""
     d = e3 - s3
-    two_pi = s3.new_tensor(2.0 * math.pi)
-    pi = s3.new_tensor(math.pi)
+    two_pi = s3.new_full((), 2.0 * math.pi)
+    pi = s3.new_full((), math.pi)
     lanes = torch.arange(s3.shape[1], device=s3.device)
     for sp in spheres:
         s_loc = torch.stack([s3[0] - sp.cx, s3[1] - sp.cy, s3[2] - sp.cz])
@@ -291,13 +297,7 @@ def _store_sphere_events(spheres, gate, s3, e3, p_prev, p_new, ev_kind, ev_data,
         world = (local[0] + sp.cx, local[1] + sp.cy, local[2] + sp.cz)
         p_interp = p_prev + t[None] * (p_new - p_prev)
         payload = torch.stack([*world, *p_interp, u, v, *d], dim=-1)  # [N, 12]
-        store = hit & (ev_count < ev_kind.shape[1])
-        sel = lanes[store]
-        slot = ev_count[store].long()
-        ev_kind[sel, slot] = sp.kind
-        ev_data[sel, slot] = payload[store]
-        ev_count = ev_count + store.to(ev_count.dtype)
-        ev_ovf = ev_ovf | (hit & ~store)
+        ev_count, ev_ovf = _store_event(ev_kind, ev_data, ev_count, ev_ovf, lanes, hit, sp.kind, payload)
     return ev_count, ev_ovf
 
 
@@ -374,19 +374,13 @@ def _store_vol_events(vols, cand, s3, e3, p_prev, p_new, ev_kind, ev_data, ev_co
         point = s3 + t_ev[None] * d
         rr = torch.sqrt(point[0] * point[0] + point[1] * point[1])
         phi = torch.atan2(point[1], point[0])
-        width = rr.new_tensor(vs.outer) - rr.new_tensor(vs.inner)
+        width = rr.new_full((), vs.outer) - rr.new_full((), vs.inner)
         r_norm = (rr - vs.inner) / width
         u = 0.5 + 0.5 * r_norm * torch.cos(phi)
         v = 0.5 + 0.5 * r_norm * torch.sin(phi)
         p_interp = p_prev + t_ev[None] * (p_new - p_prev)
         payload = torch.stack([*point, *p_interp, u, v, *d], dim=-1)  # [N, 12]
-        store = hit & (ev_count < ev_kind.shape[1])
-        sel = lanes[store]
-        slot = ev_count[store].long()
-        ev_kind[sel, slot] = vs.kind
-        ev_data[sel, slot] = payload[store]
-        ev_count = ev_count + store.to(ev_count.dtype)
-        ev_ovf = ev_ovf | (hit & ~store)
+        ev_count, ev_ovf = _store_event(ev_kind, ev_data, ev_count, ev_ovf, lanes, hit, vs.kind, payload)
     return ev_count, ev_ovf
 
 
@@ -430,14 +424,15 @@ def _ks_rk4_delta(c, y, r_here):
     return (h / h.new_full((), 6.0)) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
 
 
-def _plain_step(c, lanes, discs, spheres=(), vols=(), delta_fn=None):
-    """One march iteration over `lanes`; stopped lanes stay frozen.
-    delta_fn(y, r_here), when given, stands in for _ks_rk4_delta (a replay
-    of it: _replayed)."""
+def _plain_step(c, lanes, discs, spheres=(), vols=()):
+    """One march iteration over `lanes`; stopped lanes stay frozen. On the
+    card it does not synchronize with the host (a CUDA graph captures it,
+    integrator.run_lanes); on the CPU it skips the event stores of a step
+    that no lane's test passes."""
     y, r_here, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, comp = lanes
     radius, a = c["radius"], c["a"]
     active = stop == integ.RUNNING
-    delta = (delta_fn or (lambda yy, rr: _ks_rk4_delta(c, yy, rr)))(y, r_here)
+    delta = _ks_rk4_delta(c, y, r_here)
     y_new, comp = _update(c, active, y, delta, comp)
 
     pos_finite = torch.all(torch.isfinite(y_new[0:4]), dim=0)
@@ -451,7 +446,7 @@ def _plain_step(c, lanes, discs, spheres=(), vols=(), delta_fn=None):
     if discs:
         z_prev, z_new = y[3], y_new[3]
         crossing = (z_prev * z_new < 0.0) & active
-        if bool(crossing.any()):
+        if _any_lane(crossing):
             p_prev = _momentum_contra(radius, a, y)
             p_new = _momentum_contra(radius, a, y_new)
             frac = z_prev / (z_prev - z_new + (z_prev == z_new).to(y.dtype))
@@ -464,7 +459,7 @@ def _plain_step(c, lanes, discs, spheres=(), vols=(), delta_fn=None):
             )
     if spheres:
         cand = _sphere_candidates_ks(spheres, active, y, y_new)
-        if bool(cand.any()):
+        if _any_lane(cand):
             p_prev = _momentum_contra(radius, a, y)
             p_new = _momentum_contra(radius, a, y_new)
             ev_count, ev_ovf = _store_sphere_events(
@@ -480,7 +475,7 @@ def _plain_step(c, lanes, discs, spheres=(), vols=(), delta_fn=None):
         t_star = torch.clamp(-b_h / torch.clamp(a_c, min=1e-20), 0.0, 1.0)
         rho_min2 = rho0 + (2.0 * b_h + a_c * t_star) * t_star
         cand = _vol_candidates(vols, active, y[3], y_new[3], rho_min2)
-        if bool(cand.any()):
+        if _any_lane(cand):
             p_prev = _momentum_contra(radius, a, y)
             p_new = _momentum_contra(radius, a, y_new)
             ev_count, ev_ovf = _store_vol_events(
@@ -494,6 +489,12 @@ def _plain_step(c, lanes, discs, spheres=(), vols=(), delta_fn=None):
         )
     r_carry = torch.where(active, r_new, r_here)
     return _Lanes(y_new, r_carry, stop_new, steps_new, ev_kind, ev_data, ev_count, ev_ovf, comp)
+
+
+def _any_lane(mask):
+    """Whether a step's event stores must run: always on the card (no host
+    sync), on the CPU only if some lane's test passed."""
+    return mask.is_cuda or bool(mask.any())
 
 
 def _check_args(y0, discs, spheres, vols, resume, ckpt_every, max_events=MAX_EVENTS):
@@ -554,8 +555,7 @@ def march_plain(
     resume=None, finalize=True, ckpt_every=0, compensated=False, max_events=MAX_EVENTS,
 ):
     """The march in plain torch on y0's device; same arguments and results
-    as `kerr_rk4_march`. Lanes are re-gathered every _COMPACT_EVERY
-    iterations; the checkpoint rows go by this call's iteration count."""
+    as `kerr_rk4_march`, its lanes run by _march_lanes."""
     _check_args(y0, discs, spheres, vols, resume, ckpt_every, max_events)
     dtype, device = y0.dtype, y0.device
     attempts = max_steps if attempts is None else int(attempts)
@@ -569,71 +569,35 @@ def march_plain(
     # starts at zero, on a resumed leg as on a fresh march.
     lanes = _Lanes(y, _ks_radius(c["a"], y[1], y[2], y[3]), *state, torch.zeros_like(y))
 
-    def batch_step(sub):
-        delta = _replayed(lambda yy, rr: _ks_rk4_delta(c, yy, rr), sub.y, sub.r)
-        return lambda s: _plain_step(c, s, discs, spheres, vols, delta)
-
-    return _march_lanes(batch_step, lanes, attempts, finalize, ckpt_every)
+    return _march_lanes(lambda s: _plain_step(c, s, discs, spheres, vols), lanes, attempts, finalize, ckpt_every)
 
 
-class _Replay:
-    """fn(*inputs) on fixed-shape CUDA tensors, captured once into a CUDA
-    graph and replayed per call: the same kernels, so the same bits, for
-    one launch in place of the host's dispatch of every op. The plain
-    marches replay the RK4 part of their step (~170 ops for BL, ~330 for
-    Kerr-Schild) within a compaction batch, whose shapes are fixed; the
-    host's dispatch otherwise bounds them. The returned tensor is the
-    graph's own output, overwritten by the next call."""
-
-    def __init__(self, fn, *inputs):
-        self.inputs = tuple(x.clone() for x in inputs)
-        side = torch.cuda.Stream(inputs[0].device)
-        side.wait_stream(torch.cuda.current_stream(inputs[0].device))
-        with torch.cuda.stream(side):
-            fn(*self.inputs)  # warm-up: nothing initializes lazily inside the capture
-        torch.cuda.current_stream(inputs[0].device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.output = fn(*self.inputs)
-
-    def __call__(self, *inputs):
-        for dst, src in zip(self.inputs, inputs):
-            dst.copy_(src)
-        self.graph.replay()
-        return self.output
-
-
-def _replayed(fn, *inputs):
-    """fn, replayed from a CUDA graph (_Replay) when its inputs are on the
-    card."""
-    return _Replay(fn, *inputs) if inputs[0].is_cuda else fn
-
-
-def _march_lanes(batch_step, lanes, attempts, finalize, ckpt_every):
-    """Run the RUNNING lanes for up to `attempts` iterations, re-gathering
-    them every _COMPACT_EVERY iterations; batch_step(sub) gives the step
-    (lanes -> lanes) of each gathered batch. Returns the march's results
-    (y [N, 8], stop, steps, ev_kind, ev_data, ev_count, ev_overflow, and
-    the checkpoints [S, 8, N] when ckpt_every > 0). The checkpoint rows go
-    by this call's iteration count."""
+def _march_lanes(step, lanes, attempts, finalize, ckpt_every):
+    """Run the RUNNING lanes for up to `attempts` iterations of `step`
+    (lanes -> lanes) on integrator.run_lanes: blocks of _COMPACT_EVERY
+    iterations over the lanes running at each block's start on the CPU;
+    on the card blocks doubling from integrator.BLOCK_FIRST to BLOCK_MAX,
+    each replayed from a CUDA graph of one step. With checkpoints, blocks of
+    ckpt_every iterations, each writing its row at its start (a lane that
+    stopped inside the block writes no later row, and no row it reached is
+    left out). Returns the march's results (y [N, 8], stop, steps, ev_kind,
+    ev_data, ev_count, ev_overflow, and the checkpoints [S, 8, N] when
+    ckpt_every > 0). The checkpoint rows go by this call's iteration
+    count."""
     k_ckpt = int(ckpt_every)
+    at_block = None
     if k_ckpt:
         ckpt = lanes.y.new_zeros((-(-attempts // k_ckpt),) + tuple(lanes.y.shape))
-    it = 0
-    while it < attempts:
-        idx = torch.nonzero(lanes.stop == integ.RUNNING).flatten()
-        if idx.numel() == 0:
-            break
-        sub = _take(lanes, idx)
-        step = batch_step(sub)
-        for j in range(it, min(it + _COMPACT_EVERY, attempts)):
-            if k_ckpt and j % k_ckpt == 0:
-                # The pre-step state; a lane that stopped earlier in this
-                # sub-loop writes its frozen state into a row nothing reads.
-                ckpt[j // k_ckpt][:, idx] = sub.y
-            sub = step(sub)
-        _put(lanes, idx, sub)
-        it += _COMPACT_EVERY
+        blocks = (k_ckpt, k_ckpt)
+
+        def at_block(it, idx, sub):
+            ckpt[it // k_ckpt][:, idx] = sub.y
+    elif lanes.y.is_cuda:
+        blocks = (integ.BLOCK_FIRST, integ.BLOCK_MAX)
+    else:
+        blocks = (_COMPACT_EVERY, _COMPACT_EVERY)
+    integ.run_lanes(lambda s, _: step(s), lanes, {}, lambda s: s.stop == integ.RUNNING, attempts,
+                    name="plain", take=_take, put=_put, blocks=blocks, at_block=at_block)
     stop = lanes.stop
     if finalize:
         stop = torch.where(stop == integ.RUNNING, integ.BUDGET, stop)
@@ -810,14 +774,13 @@ class _BLLanes(NamedTuple):
     inv_e: torch.Tensor
 
 
-def _bl_plain_step(c, lanes, discs, spheres=(), vols=(), delta_fn=None):
-    """One BL march iteration over `lanes`; stopped lanes stay frozen.
-    delta_fn(y), when given, stands in for _bl_rk4_delta on these lanes'
-    (E, L_z, Q) (a replay of it: _replayed)."""
+def _bl_plain_step(c, lanes, discs, spheres=(), vols=()):
+    """One BL march iteration over `lanes`; stopped lanes stay frozen. On
+    the card it does not synchronize with the host (_plain_step)."""
     y, stop, steps, ev_kind, ev_data, ev_count, ev_ovf, comp, e, l_z, q, inv_e = lanes
     radius, a = c["radius"], c["a"]
     active = stop == integ.RUNNING
-    delta = (delta_fn or (lambda yy: _bl_rk4_delta(c, e, l_z, q, inv_e, c["r_plus"], yy)))(y)
+    delta = _bl_rk4_delta(c, e, l_z, q, inv_e, c["r_plus"], y)
     y_new, comp = _update(c, active, y, delta, comp)
 
     pos_finite = torch.all(torch.isfinite(y_new[0:4]), dim=0)
@@ -832,7 +795,7 @@ def _bl_plain_step(c, lanes, discs, spheres=(), vols=(), delta_fn=None):
         d_prev = y[2] - c["half_pi"]
         d_new = y_new[2] - c["half_pi"]
         crossing = (d_prev * d_new < 0.0) & active
-        if bool(crossing.any()):
+        if _any_lane(crossing):
             p_prev = _bl_momentum(radius, a, e, l_z, y)
             p_new = _bl_momentum(radius, a, e, l_z, y_new)
             frac = d_prev / (d_prev - d_new + (d_prev == d_new).to(y.dtype))
@@ -849,7 +812,7 @@ def _bl_plain_step(c, lanes, discs, spheres=(), vols=(), delta_fn=None):
             )
     if spheres:
         cand = _sphere_candidates_bl(spheres, a, active, y, y_new)
-        if bool(cand.any()):
+        if _any_lane(cand):
             p_prev = _bl_momentum(radius, a, e, l_z, y)
             p_new = _bl_momentum(radius, a, e, l_z, y_new)
             ev_count, ev_ovf = _store_sphere_events(
@@ -859,7 +822,7 @@ def _bl_plain_step(c, lanes, discs, spheres=(), vols=(), delta_fn=None):
     if vols:
         # The embedded chord's z = r cos θ is linear between its ends.
         cand = _vol_candidates(vols, active, y[1] * torch.cos(y[2]), y_new[1] * torch.cos(y_new[2]))
-        if bool(cand.any()):
+        if _any_lane(cand):
             p_prev = _bl_momentum(radius, a, e, l_z, y)
             p_new = _bl_momentum(radius, a, e, l_z, y_new)
             ev_count, ev_ovf = _store_vol_events(
@@ -903,11 +866,8 @@ def march_bl_plain(
     e, l_z, q = (v.detach().clone() for v in (e, l_z, q))
     lanes = _BLLanes(y, *state, torch.zeros_like(y), e, l_z, q, 1.0 / torch.clamp(torch.abs(e), min=1e-12))
 
-    def batch_step(sub):
-        delta = _replayed(lambda yy: _bl_rk4_delta(c, sub.e, sub.l_z, sub.q, sub.inv_e, c["r_plus"], yy), sub.y)
-        return lambda s: _bl_plain_step(c, s, discs, spheres, vols, delta)
-
-    return _march_lanes(batch_step, lanes, attempts, finalize, ckpt_every)
+    return _march_lanes(lambda s: _bl_plain_step(c, s, discs, spheres, vols), lanes, attempts, finalize,
+                        ckpt_every)
 
 
 # ---------------------------------------------------------------------------

@@ -135,6 +135,11 @@ def perlin3_lanes(key: int, x, y, z):
     return _perlin3_steps(key, x, y, z)[-1]
 
 
+def perlin3(key: int, p):
+    """3-D Perlin noise of points p [..., 3] -> [...]."""
+    return perlin3_lanes(key, p[..., 0], p[..., 1], p[..., 2])
+
+
 def _grad_vectors(h):
     """The gradient vectors of `_grad` for the hashes h, [..., 3]: the
     partials of _grad(h, x, y, z) along x, y and z, each 0 or ±1."""
@@ -231,3 +236,8 @@ def fbm_lanes_grad(key: int, x, y, z, num_octaves: int, h: float = 0.5):
         weight = amplitude * freq
         gx, gy, gz = gx + weight * ox[i], gy + weight * oy[i], gz + weight * oz[i]
     return t, gx, gy, gz
+
+
+def fbm(key: int, p, num_octaves: int, h: float = 0.5):
+    """fBm of points p [..., 3] -> [...] (fbm_lanes on the components)."""
+    return fbm_lanes(key, p[..., 0], p[..., 1], p[..., 2], num_octaves, h)

@@ -49,6 +49,7 @@ from gr_raytracer_tpu_torch.objects.volumetric_disc import (
     ALPHA_WT_MIN, DENSITY_VERTICAL_CUTOFF, SATURATION_EPS,
 )
 from gr_raytracer_tpu_torch.ops import noise
+from gr_raytracer_tpu_torch.rendering import integrator as integ
 
 TEMP_DEG = 32
 # Blackbody log-XYZ fits: two domains split at log₁₀T = 3.8, evaluated by
@@ -59,7 +60,8 @@ BB_DEG_HI = 12  # [BB_SPLIT, hi]
 BB_LOG_FLOOR = -120.0  # log10 of "no emission"
 MAX_OCTAVES = 16  # kMaxOctaves in the CUDA source
 _LN10 = float(np.log(10.0))
-# Lanes are re-gathered every this many iterations of the plain march.
+# Lanes are re-gathered every this many iterations of the plain march on the
+# CPU (march_compacted).
 _COMPACT_EVERY = 32
 
 # The medium parameters of the differentiable march, in the order of its
@@ -96,7 +98,7 @@ def cheb_fit(fn, lo: float, hi: float, deg: int):
 
 def cheb_eval(coeffs, lo, hi, x):
     """Clenshaw evaluation of host coefficients at x (a tensor)."""
-    t = (2.0 * x - (lo + hi)) / x.new_tensor(hi - lo)
+    t = (2.0 * x - (lo + hi)) / x.new_full((), hi - lo)
     t2 = 2.0 * t
     b1 = torch.zeros_like(x)
     b2 = torch.zeros_like(x)
@@ -114,8 +116,8 @@ def cheb_eval_dual(c_lo, c_hi, lo, split, hi, in_hi, x):
     c_hi = tuple(c_hi) + (0.0,) * (n - len(c_hi))
     t = torch.where(
         in_hi,
-        (2.0 * x - (split + hi)) / x.new_tensor(hi - split),
-        (2.0 * x - (lo + split)) / x.new_tensor(split - lo),
+        (2.0 * x - (split + hi)) / x.new_full((), hi - split),
+        (2.0 * x - (lo + split)) / x.new_full((), split - lo),
     )
     t2 = 2.0 * t
     b1 = torch.zeros_like(x)
@@ -611,20 +613,20 @@ def _march_step(spec, c, s: _Lanes, med: Medium) -> _Lanes:
 
 def march_compacted(lanes, step, carry, max_steps):
     """Run `step` (lanes -> lanes) on the lanes that are not done, at most
-    max_steps times; the lanes are re-gathered every _COMPACT_EVERY steps
-    and the `carry` fields of each gathered batch written back. `lanes` is
-    a NamedTuple of per-lane tensors with a bool `done`; updated in place."""
-    it = 0
-    while it < max_steps:
-        idx = torch.nonzero(~lanes.done).flatten()
-        if idx.numel() == 0:
-            break
-        sub = type(lanes)(*(t[idx] for t in lanes))
-        for _ in range(it, min(it + _COMPACT_EVERY, max_steps)):
-            sub = step(sub)
+    max_steps times, on integrator.run_lanes: blocks of _COMPACT_EVERY
+    steps over the lanes not done at each block's start on the CPU, on the
+    card blocks doubling from integrator.BLOCK_FIRST to BLOCK_MAX, each
+    replayed from a CUDA graph of one step; the `carry` fields of each
+    gathered batch are written back. `lanes` is a NamedTuple of per-lane
+    tensors with a bool `done`; updated in place."""
+
+    def put(state, idx, sub):
         for name in carry:
-            getattr(lanes, name)[idx] = getattr(sub, name)
-        it += _COMPACT_EVERY
+            getattr(state, name)[idx] = getattr(sub, name)
+
+    blocks = (integ.BLOCK_FIRST, integ.BLOCK_MAX) if lanes.done.is_cuda else (_COMPACT_EVERY, _COMPACT_EVERY)
+    integ.run_lanes(lambda s, _: step(s), lanes, {}, lambda s: ~s.done, max_steps, name="plain",
+                    take=lambda state, idx: type(state)(*(t[idx] for t in state)), put=put, blocks=blocks)
     return lanes
 
 
@@ -643,7 +645,7 @@ def _march(spec, c, med: Medium, ro, rd, obs_e, p_t, p_phi, active, exit_d) -> _
 
 def raymarch_plain(spec: VolSpec, ro, rd, obs_e, p_t, p_phi, active, exit_d):
     """The march in plain torch on ro's device; same arguments and results
-    as `raymarch`. Lanes are re-gathered every _COMPACT_EVERY samples."""
+    as `raymarch`, its lanes run by march_compacted."""
     _check_args(spec, ro, rd, obs_e, p_t, p_phi, active, exit_d)
     c = _constants(spec, ro.dtype, ro.device)
     lanes = _march(spec, c, _medium(spec, c), ro, rd, obs_e, p_t, p_phi, active, exit_d)

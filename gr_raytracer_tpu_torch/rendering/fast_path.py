@@ -12,9 +12,12 @@ of rendering/scene.py, with the scene's own geometry. A scene whose one
 object is a volumetric disc goes through `trace_rays_fast_vol`: the
 geometric march, the compaction of its volumetric event slots, and one
 raymarch K5 over them (ops/volumetric_march.py). A Mino-time march goes
-in two launches of K3 (`_march`). Nothing here synchronizes with the
-card except that compaction (one count per call), so chunks of rays can be
-queued ahead of the host. `trace_rays_fast_vol_diff` is the differentiable
+in two launches of K3 (`_march`). A scene with a volumetric disc beside
+other objects, or whose raymarch K5 does not cover, takes the render
+driver's split path (rendering/raytracer.py), whose geometric pass is
+`trace_geometric_fast` here when `supports_scene` holds. Nothing here
+synchronizes with the card except that compaction (one count per call), so
+chunks of rays can be queued ahead of the host. `trace_rays_fast_vol_diff` is the differentiable
 form of that path: gradients flow from the colors to the five medium
 parameters through K6 and K7 (ops/volumetric_adjoint.py).
 """
@@ -298,9 +301,9 @@ def trace_geometric_fast(scene, positions, momenta, spec=None) -> scn.GeoTrace:
     )
 
 
-def volumetric_lanes(obj, ev_kind, ev_data, observer_energy, p_t, p_phi):
-    """The raymarch's lanes for every event slot of `obj`, the scene's one
-    object (kind 0): (slots [M] into the flattened [N·K] slots, (ro, rd,
+def volumetric_lanes(obj, ev_kind, ev_data, observer_energy, p_t, p_phi, idx=0):
+    """The raymarch's lanes for every event slot of `obj`, the scene's
+    object of index idx: (slots [M] into the flattened [N·K] slots, (ro, rd,
     obs_e, p_t, p_phi, active, exit_d)), both sorted by the clipped march
     length, ascending: K5 and K6 take a warp per lane from the last lane
     back, so the longest start first; K7's one thread per lane finds lanes
@@ -308,7 +311,7 @@ def volumetric_lanes(obj, ev_kind, ev_data, observer_energy, p_t, p_phi):
     rd the unit chord of the step that crossed. The compaction reads its
     exact count: one host sync."""
     k = ev_kind.shape[1]
-    slots = torch.nonzero((ev_kind == 0).reshape(-1)).flatten()
+    slots = torch.nonzero((ev_kind == idx).reshape(-1)).flatten()
     ev = ev_data.reshape(-1, ev_data.shape[-1])[slots]
     ro = ev[:, 0:3]
     seg = ev[:, 9:12]
@@ -344,7 +347,7 @@ def trace_rays_fast_vol(scene, positions, momenta, spec=None) -> VolTrace:
     per-lane result does not depend on lane order, so the sort only sets
     which lanes start first (the longest). With the exact count there are no
     padding lanes to park. Other volumetric scenes raise
-    NotImplementedError."""
+    NotImplementedError here; the render driver's split path takes them."""
     if spec is None:
         spec = scene_kernel_spec(scene)
     if spec.vol_spec is None:

@@ -1,10 +1,13 @@
 """Scene, deferred event shading and the ordered alpha fold (port of
 gr_raytracer_tpu/rendering/scene.py).
 
-The march records object crossings into a bounded per-ray event buffer;
-shading runs afterwards as one batched pass over that buffer, then a
-front-to-back premultiplied fold composites the events over the terminal
-color (exact against the reference's back-to-front blend over opaque black).
+The march records object crossings into a bounded per-ray event buffer
+(the kernel path's march, or the RKF45 path's `integrate_rays` with the
+nearest-hit segment test `_segment_fn`); shading runs afterwards as one
+batched pass over that buffer, then a front-to-back premultiplied fold
+composites the events over the terminal color (exact against the
+reference's back-to-front blend over opaque black). `trace_rays` and
+`trace_geometric` are the RKF45 path's tracers.
 
 The safe-park and double-where guards below keep masked lanes finite: a
 masked inf still turns a backward pass into 0·inf = NaN.
@@ -19,9 +22,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from gr_raytracer_tpu_torch.geometry import chart as charts
+from gr_raytracer_tpu_torch.geometry.base import dot
 from gr_raytracer_tpu_torch.objects.volumetric_disc import VolumetricDisc
 from gr_raytracer_tpu_torch.rendering import integrator as integ
 from gr_raytracer_tpu_torch.rendering.integrator import IntegrationConfig
+from gr_raytracer_tpu_torch.rendering.redshift import ray_frequency_data
 
 # Ray classification.
 ESCAPED = 0
@@ -30,6 +35,7 @@ HIT = 2
 
 # Event payload layout (ops/geodesic_march.py): [point_cart(3) | p_interp(4)
 # | uv(2) | seg_dir(3)].
+EVENT_WIDTH = 12
 
 
 @dataclass(frozen=True)
@@ -76,6 +82,8 @@ class RaySamples(NamedTuple):
     stop_code: torch.Tensor  # [N]
     steps: torch.Tensor  # [N]
     ev_overflow: torch.Tensor  # [N] bool
+    kk_drift: Optional[torch.Tensor] = None  # the RKF45 path's invariant drifts
+    const_drift: Optional[torch.Tensor] = None
 
 
 class GeoTrace(NamedTuple):
@@ -94,16 +102,54 @@ class GeoTrace(NamedTuple):
     steps: torch.Tensor  # [N] march steps
 
 
+def _segment_fn(scene):
+    """The in-loop nearest-hit segment test over all scene objects (the
+    RKF45 path's segment_fn, rendering/integrator.py): of the objects a
+    step's segment hits, the one whose hit point is nearest its start."""
+    objects = scene.objects
+
+    def fn(x_prev, cart_prev, p_prev, x_new, cart_new, p_new):
+        n = x_prev.shape[0]
+        dtype, device = x_prev.dtype, x_prev.device
+        best_hit = torch.zeros((n,), dtype=torch.bool, device=device)
+        best_dist = torch.full((n,), math.inf, dtype=dtype, device=device)
+        best_kind = torch.full((n,), -1, dtype=torch.int32, device=device)
+        best_t = torch.zeros((n,), dtype=dtype, device=device)
+        best_point = torch.zeros((n, 3), dtype=dtype, device=device)
+        best_uv = torch.zeros((n, 2), dtype=dtype, device=device)
+        start = cart_prev[..., 1:4]
+        for idx, obj in enumerate(objects):
+            hit, t, point, uv = obj.segment_hit(cart_prev, cart_new)
+            # Squared distance: the same nearest-hit order without a sqrt.
+            rel = point - start
+            dist = dot(rel, rel)
+            better = hit & (dist < best_dist)
+            best_hit = best_hit | hit
+            best_dist = torch.where(better, dist, best_dist)
+            best_kind = torch.where(better, idx, best_kind)
+            best_t = torch.where(better, t, best_t)
+            best_point = torch.where(better[:, None], point, best_point)
+            best_uv = torch.where(better[:, None], uv, best_uv)
+
+        # The momentum interpolated linearly between the segment's ends in the
+        # integrator's components; the position is the solved hit point.
+        p_interp = (1.0 - best_t)[:, None] * p_prev + best_t[:, None] * p_new
+        seg_dir = cart_new[..., 1:4] - cart_prev[..., 1:4]
+        return best_hit, best_kind, torch.cat([best_point, p_interp, best_uv, seg_dir], dim=-1)
+
+    return fn
+
+
 def _shade_events(scene, freq, res, include_volumetric=True):
     """Deferred shading of the [N, K] event buffer -> (colors [N, K, 4],
     shade_fail [N]). A thin-disc sample below r_isco with a Novikov-Thorne
     model is the reference's per-pixel error; callers map the flag to
     STEP_FAILED, which the fold renders as the default sample.
 
-    With include_volumetric=False the volumetric slots stay zero: the render driver
-    raymarches them on a compacted lane set (rendering/fast_path.py) and
-    folds. Shading them here (the JAX package's lax raymarch) is not yet
-    ported and raises."""
+    Volumetric slots are raymarched by their object's `shade_events` (the
+    RKF45 path's raymarch over the object's live slots); with
+    include_volumetric=False they stay zero, for a render driver that
+    raymarches them on its own compacted lane set and folds."""
     geometry = scene.geometry
     n, k = res.ev_kind.shape
     dtype, device = res.ev_data.dtype, res.ev_data.device
@@ -123,14 +169,12 @@ def _shade_events(scene, freq, res, include_volumetric=True):
     colors = torch.zeros((n, k, 4), dtype=dtype, device=device)
     shade_fail = torch.zeros((n,), dtype=torch.bool, device=device)
     for idx, obj in enumerate(scene.objects):
+        mask = res.ev_kind == idx
         if isinstance(obj, VolumetricDisc):
             if include_volumetric:
-                raise NotImplementedError(
-                    "volumetric events are shaded by the compacted raymarch only "
-                    "(fast_path.trace_rays_fast_vol)"
-                )
+                c = obj.shade_events(geometry, freq, res, idx)
+                colors = torch.where(mask[..., None], c, colors)
             continue
-        mask = res.ev_kind == idx
         u_emit, ok = obj.emitter_velocity(geometry, pos_native)
         emitter_energy = geometry.inner_product(pos_native, u_emit, p_interp)
         # Double-where: empty slots carry zero momentum -> redshift inf.
@@ -210,3 +254,42 @@ def fold_samples(scene, ev_kind, ev_colors, stop_code, celestial):
     color = torch.where(failed[:, None], black, color)
     ray_class = torch.where(failed, ESCAPED, ray_class)
     return color, ray_class.to(torch.int32)
+
+
+def trace_geometric(scene, positions, momenta) -> GeoTrace:
+    """The RKF45 march, event detection and surface and sky shading,
+    without the volumetric raymarch (the render driver's split path)."""
+    geometry = scene.geometry
+    solver = geometry.make_solver(positions, momenta)
+    y0 = solver.initial_state(positions, momenta)
+    freq = ray_frequency_data(geometry, positions, momenta, scene.camera.velocity)
+    res = integ.integrate_rays(geometry, solver, scene.integration, y0, _segment_fn(scene), EVENT_WIDTH)
+    colors, shade_fail = _shade_events(scene, freq, res, include_volumetric=False)
+    stop = torch.where(shade_fail, integ.STEP_FAILED, res.stop_code)
+    celestial = _celestial_color(scene, freq, solver, res)
+    return GeoTrace(
+        surface_colors=colors, celestial=celestial, ev_kind=res.ev_kind, ev_data=res.ev_data, stop_code=stop,
+        observer_energy=freq.observer_energy, p_t=freq.p_t, p_phi=freq.p_phi, ev_overflow=res.ev_overflow,
+        steps=res.steps,
+    )
+
+
+def trace_rays(scene, positions, momenta) -> RaySamples:
+    """Color a batch of camera rays ([N, 4] native-chart positions and
+    momenta) through the RKF45 path. The color's alpha is 1. Volumetric
+    slots are raymarched inline (`_shade_events`)."""
+    geometry = scene.geometry
+    solver = geometry.make_solver(positions, momenta)
+    y0 = solver.initial_state(positions, momenta)
+    freq = ray_frequency_data(geometry, positions, momenta, scene.camera.velocity)
+    res = integ.integrate_rays(geometry, solver, scene.integration, y0, _segment_fn(scene), EVENT_WIDTH)
+    return finish_rays(scene, freq, solver, res)
+
+
+def finish_rays(scene, freq, solver, res) -> RaySamples:
+    """Shade and fold an integrated batch (`trace_rays` after its march)."""
+    colors, shade_fail = _shade_events(scene, freq, res)
+    stop = torch.where(shade_fail, integ.STEP_FAILED, res.stop_code)
+    celestial = _celestial_color(scene, freq, solver, res)
+    color, ray_class = fold_samples(scene, res.ev_kind, colors, stop, celestial)
+    return RaySamples(color, ray_class, stop, res.steps, res.ev_overflow, res.kk_drift, res.const_drift)

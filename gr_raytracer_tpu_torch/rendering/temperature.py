@@ -2,7 +2,8 @@
 gr_raytracer_tpu/rendering/temperature.py).
 
 A Novikov-Thorne thin-disc radial profile, built once at scene-build time
-and queried through a uniform-grid lookup table. The flux is
+and queried through a uniform-grid lookup table, and a constant
+temperature (ConstantTemperature; the loader builds none yet). The flux is
     F(r) = −ṁ/(π r₀²) · [ (dΩ/dr) / (√−g (E−ΩL)²) ] · ∫_{isco}^{r} (E−ΩL) (dL/dr) dr
 with ṁ calibrated so the peak temperature matches the configured one.
 """
@@ -22,6 +23,19 @@ NUM_INTEGRATION_STEPS = 1000
 NUM_STEPS_FIND_MAXIMUM = 10
 SIGMA_SB = 1.0  # calibrated away
 _CHUNK = 100
+
+
+@dataclass(frozen=True)
+class ConstantTemperature:
+    """One temperature everywhere; never rejects a sample."""
+
+    value: torch.Tensor
+
+    def at(self, r):
+        return torch.broadcast_to(self.value, r.shape)
+
+    def below_isco(self, r):
+        return torch.zeros(r.shape, dtype=torch.bool, device=r.device)
 
 
 @dataclass(frozen=True)

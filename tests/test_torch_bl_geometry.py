@@ -129,8 +129,11 @@ def test_schwarzschild_matches_jax():
     np.testing.assert_array_equal(ok.numpy(), np.asarray(w_ok))
     _close(tg.circular_orbit_velocity(tx)[0], j.circular_orbit_velocity(jx)[0])
     assert tg.signature() == j.signature() and tg.spin == 0.0 and tg.chart == tchart.SPHERICAL
-    with pytest.raises(NotImplementedError):
-        tg.make_solver(tx, t(v))
+    # The RKF45 solver (its right-hand side is held in tests/test_torch_rkf45.py).
+    ts, js = tg.make_solver(tx, t(v)), j.make_solver(jx, jnp.asarray(v))
+    y = np.concatenate([x, v], axis=-1)
+    _close(ts.initial_state(tx, t(v)), js.initial_state(jx, jnp.asarray(v)))
+    _close(ts.momentum(t(y)), js.momentum(jnp.asarray(y)))
 
 
 def test_create_scene_matches_jax():

@@ -120,18 +120,25 @@ def test_render_section_with_supersampling_matches_jax(frames):
 
 def _render_chunks(scene, chunk_size, monkeypatch):
     """render_section of `scene` with `chunk_size`, and per traced chunk
-    (trt._trace_chunk's calls in order): its event slots, a key of each
-    ray's pixel coordinates, its rays' stop codes and steps."""
+    (trt._trace_chunk's calls and the RKF45 re-traces of the rays that
+    overflowed, trt._retrace_overflow's, in order): its event slots, a key
+    of each ray's pixel coordinates, its rays' stop codes and steps."""
     chunks = []
-    inner = trt._trace_chunk
+    inner, inner_retrace = trt._trace_chunk, trt._retrace_overflow
+    key = lambda row_f, col_f: (row_f * 4 * FRAME + col_f).numpy()  # unique for the AA pass's quarter-pixel offsets
 
     def traced(scene, spec, row_f, col_f):
         outs, lanes = inner(scene, spec, row_f, col_f)
-        coords = (row_f * 4 * FRAME + col_f).numpy()  # unique for the AA pass's quarter-pixel offsets
-        chunks.append((scene.integration.max_events, coords, outs[2].numpy(), outs[4].numpy()))
+        chunks.append((scene.integration.max_events, key(row_f, col_f), outs[2].numpy(), outs[4].numpy()))
         return outs, lanes
 
+    def retraced(scene, row_f, col_f):
+        outs, secs = inner_retrace(scene, row_f, col_f)
+        chunks.append((trt.OVERFLOW_MAX_EVENTS, key(row_f, col_f), outs[2], outs[4]))
+        return outs, secs
+
     monkeypatch.setattr(trt, "_trace_chunk", traced)
+    monkeypatch.setattr(trt, "_retrace_overflow", retraced)
     out = trt.render_section(scene, chunk_size=chunk_size)
     monkeypatch.undo()
     return out, chunks
@@ -142,8 +149,9 @@ def test_chunks_match_one_chunk(kerr_bl, max_events, monkeypatch):
     """trace_pixels_chunked with chunk_size=CHUNK: each pass of the 16²
     frame in several chunks, each marched in two legs (fast_path._march)
     and shaded on its own; with max_events=1 the rays that overflow their
-    one slot are re-traced chunk by chunk. Held against the same render
-    at the default chunk size, where each pass is one chunk."""
+    one slot are re-traced chunk by chunk (on the RKF45 path). Held against
+    the same render at the default chunk size, where each pass is one
+    chunk."""
     scene = kerr_bl[1]
     if max_events == 1:
         # The disc made translucent, so that a ray records every crossing

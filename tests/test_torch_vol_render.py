@@ -7,7 +7,10 @@ interpret mode, on the 16×8 frame of tests/test_raytracer.py's fused-split
 test (a Kerr volumetric disc seen from below its plane) and on the same
 scene in Boyer-Lindquist coordinates: stop codes and ray classes equal,
 colors within 1e-8 relative. Then the CLI renders a small volumetric frame
-on the CPU, and on a card K5 is held against its plain version."""
+on the CPU, the rays that overflow their event slots are re-traced on the
+RKF45 path and held against the JAX driver's re-trace, a volumetric disc
+beside a thin disc renders through the split path, and on a card K5 is
+held against its plain version."""
 
 import dataclasses
 
@@ -18,8 +21,10 @@ import pytest
 import torch
 
 from gr_raytracer_tpu import config as jcfg
+from gr_raytracer_tpu.objects.disc import Disc as JDisc
 from gr_raytracer_tpu.ops import volumetric_pallas as vp
 from gr_raytracer_tpu.rendering import fast_path as jfp
+from gr_raytracer_tpu.rendering import raytracer as jrt
 from gr_raytracer_tpu_torch import cli
 from gr_raytracer_tpu_torch import config as tcfg
 from gr_raytracer_tpu_torch.objects.disc import Disc
@@ -115,42 +120,70 @@ def test_cli_renders_a_volumetric_png(tmp_path):
 
 def test_overflowing_rays_are_retraced_with_more_slots(kerr_jax_frame):
     """With one event slot a ray, the rays crossing the slab twice or more
-    overflow; the render driver traces them again with OVERFLOW_MAX_EVENTS
-    slots through the same kernel path (the JAX driver re-traces on its lax
-    path). The frame equals the one traced with eight slots from the start,
-    and its re-traced rays match the JAX fused tracer's eight-slot frame
-    (stop codes, classes, colors within 1e-8)."""
-    _, t_scene = _scenes("Kerr", CAMERA)
+    overflow; the render driver traces them again on the RKF45 path with
+    OVERFLOW_MAX_EVENTS slots, as the JAX driver does. The other rays equal
+    the frame traced with eight slots bit for bit, and the re-traced rays
+    match the JAX package's `_retrace_overflow` on the same rays (classes
+    and stop codes equal, colors within 1e-8)."""
+    j_scene, t_scene = _scenes("Kerr", CAMERA)
     rr, cc = pixel_grid(ROWS, COLS)
     ref = trt.trace_pixels_chunked(t_scene, rr, cc, chunk_size=64)
     narrow = dataclasses.replace(t_scene, integration=dataclasses.replace(t_scene.integration, max_events=1))
     got = trt.trace_pixels_chunked(narrow, rr, cc, chunk_size=64)
     assert ref[3].overflow == 0 and got[3].overflow > 0 and got[3].overflow_dropped == 0
-    for a, b in zip(got[:3], ref[:3]):
-        np.testing.assert_array_equal(a, b)
-    assert got[3].vol_lanes > ref[3].vol_lanes
+    assert got[3].ray_steps > ref[3].ray_steps and got[3].overflow_march_s > 0.0
 
-    # The rays that overflowed one slot, held against the JAX package.
     x, p = tcam.pixel_rays(narrow.camera, t(rr), t(cc))
     ovf = tfp.trace_geometric_fast(narrow, x, p, tfp.scene_kernel_spec(narrow)).ev_overflow.numpy()
     assert ovf.sum() == got[3].overflow
-    c_r, k_r, s_r, o_r, _ = kerr_jax_frame
-    assert not o_r[ovf].any()
-    np.testing.assert_array_equal(got[1][ovf], k_r[ovf])
-    np.testing.assert_allclose(got[0][ovf, :3], c_r[ovf], rtol=COLOR_TOL, atol=1e-12)
+    for a, b in zip(got[:3], ref[:3]):
+        np.testing.assert_array_equal(a[~ovf], b[~ovf])
+
+    # The re-traced rays, held against the JAX driver's re-trace of them.
+    idx = np.nonzero(ovf)[0]
+    colors = np.zeros((rr.size, 4))
+    classes = np.zeros(rr.size, np.int32)
+    stops = np.zeros(rr.size, np.int32)
+    jrt._retrace_overflow(j_scene, rr, cc, idx, colors, classes, stops)
+    np.testing.assert_array_equal(got[1][idx], classes[idx])
+    np.testing.assert_array_equal(got[2][idx], stops[idx] != 6)
+    np.testing.assert_allclose(got[0][idx], colors[idx], rtol=COLOR_TOL, atol=1e-12)
+    assert (got[0][idx, :3] != ref[0][idx, :3]).any()  # the RKF45 path, not the kernel path
 
 
 def test_unported_volumetric_scenes_raise():
-    _, t_scene = _scenes("Kerr", CAMERA)
+    """A volumetric disc beside a thin disc: the kernel path's one-object
+    tracer still refuses it (trace_rays_fast_vol raises NotImplementedError
+    for its direct callers), and the render driver renders it through the
+    split path: with lax=True (the RKF45 geometric pass and raymarch) equal
+    to the JAX driver's frame, which on the CPU takes the same forms
+    (stop codes, classes equal; colors within 1e-8); without, through the
+    kernel geometric pass and K5's plain version."""
+    j_scene, t_scene = _scenes("Kerr", CAMERA)
     (vol,) = t_scene.objects
     disc = Disc(vol.inner_radius, vol.outer_radius, vol.temperature_model, vol.texture)
     both = dataclasses.replace(t_scene, objects=(vol, disc))
+    (jvol,) = j_scene.objects
+    j_both = j_scene.replace(objects=(jvol, JDisc(jvol.inner_radius, jvol.outer_radius, jvol.temperature_model,
+                                                  jvol.texture)))
     assert tfp.supports_scene(both) and tfp.scene_kernel_spec(both).vol_spec is None
-    x, p = tcam.pixel_rays(both.camera, *(t(a) for a in pixel_grid(2, 2)))
+    rr, cc = pixel_grid(4, 8)
+    rr, cc = rr + 2.0, cc + 4.0  # the frame's middle, where gas and disc are
+    x, p = tcam.pixel_rays(both.camera, t(rr), t(cc))
     with pytest.raises(NotImplementedError):
         tfp.trace_rays_fast_vol(both, x, p)
-    with pytest.raises(NotImplementedError):  # no lax raymarch for volumetric slots
-        tfp.trace_rays_fast(t_scene, x, p)
+    assert trt._route(both, lax=False) == trt._route(both, lax=True) == "split"
+
+    c, k, ok, stats = trt.trace_pixels_chunked(both, rr, cc, chunk_size=64, lax=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jrt, "VOLUMETRIC_LANE_CHUNK", 64)  # lax raymarch batches of 64 lanes
+        c_r, k_r, ok_r = jrt.trace_pixels_chunked(j_both, rr, cc, chunk_size=64)
+    np.testing.assert_array_equal(k, k_r)
+    np.testing.assert_array_equal(ok, ok_r)
+    np.testing.assert_allclose(c, c_r, rtol=COLOR_TOL, atol=1e-12)
+    assert stats.vol_lanes > 0 and (k == 2).any()
+    c2, k2, _, s2 = trt.trace_pixels_chunked(both, rr, cc, chunk_size=64)
+    assert np.isfinite(c2).all() and s2.vol_lanes > 0 and s2.vol_samples > 0
 
 
 @pytest.mark.cuda
