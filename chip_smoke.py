@@ -215,9 +215,29 @@ non-zero on failure:
      launches count in the kernels line); 4,096 of its first K5 launch's
      lanes against raymarch_plain bit for bit at 2,000 samples; pass 1
      against the lax path by phase 33's stop bar;
+ 36. reverse mode through the lax path (IntegrationConfig(differentiable=
+     True), checkpointed blocks of LAX_GRAD_BLOCK iterations):
+     grad_scale_probe.py's grad_step on the flagship at 128² in float32,
+     its budget cut to LAX_GRAD_BUDGET: forward and backward seconds,
+     iterations, blocks, lanes a block, peak memory, the loss and the seven
+     gradients of tests/test_grad.py, beside the kernel VJP's (K1, K2) on
+     the same loss; finite, ∂a and ∂radius nonzero;
+ 37. a 16² sub-grid of that frame in float64 on the card against a spawned
+     CPU process (started in phase 36): the loss within 1e-9, the seven
+     gradients within 1e-6 relative, the card's ∂a within 5e-4 of a
+     central difference of its own float64 forward;
+ 38. the probe's inverse_fit on the lax path: a from 0.30 toward 0.45 at
+     128² (steps and budget cut: LAX_FIT_STEPS, LAX_FIT_BUDGET), s a step
+     and the device's busy share of one more step; the loss falls and a
+     moves toward 0.45;
+ 39. scenes outside fast_path.supports_diff: schwarzschild.toml at 128²
+     (the gradient in the Schwarzschild radius and the sphere's radius,
+     finite and nonzero), and the differentiable raymarch on test_grad.py's
+     16 chords in float64 on the card against the CPU within 1e-9;
  32. one JSON line {"kernels": [...]} with each kernel's launches, error
-     against its plain version, times and bound;
- 36. the last line: {"ok": true, "device": {...}}.
+     against its plain version, times and bound (phases 36-39 add no
+     kernel);
+ 40. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1170,25 +1190,35 @@ def fit_step_breakdown(render, loss_fn, target, params):
         with torch.profiler.record_function("fit_step"):
             step()
             torch.cuda.synchronize()
-    return split, device_busy_share(prof.events(), "fit_step")
+    return split, device_busy_share(prof, "fit_step")
 
 
-def device_busy_share(events, window_name):
-    """The union of the device intervals of a profiler trace that fall in
-    the host range `window_name`, over that range's length; None when no
-    device interval falls in it. The range's own device-side annotation is
-    not device work and is left out."""
+def device_busy_share(prof, window_name=None):
+    """The union of the device intervals of a torch.profiler trace that
+    fall in the host range `window_name`, over that range's length; with
+    no `window_name` (a trace of the device alone), over the span from the
+    trace's first device interval to its last, so that the profiler's own
+    start and stop count as neither busy nor idle. None when no device
+    interval falls in the window. The range's own device-side annotation
+    is not device work and is left out. Read from the trace's raw events:
+    a lax gradient step holds ~1.5 M device events, which prof.events()
+    takes minutes to turn into Python objects."""
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
-    window = next(e for e in events if e.name == window_name and e.device_type != cuda)
-    lo, hi = window.time_range.start, window.time_range.end
-    spans = sorted(
-        (max(e.time_range.start, lo), min(e.time_range.end, hi)) for e in events
-        if e.device_type == cuda and e.name != window_name and not getattr(e, "is_user_annotation", False)
-    )
-    busy, end = 0.0, lo
-    for start, stop in spans:
+    events = prof.profiler.kineto_results.events()
+    if window_name is None:
+        device = [(e.start_ns(), e.end_ns()) for e in events if e.device_type() == cuda]
+        if not device:
+            return None
+        lo, hi = min(t[0] for t in device), max(t[1] for t in device)
+    else:
+        device = [(e.start_ns(), e.end_ns()) for e in events if e.device_type() == cuda
+                  and e.name() != window_name and not e.is_user_annotation()]
+        window = next(e for e in events if e.name() == window_name and e.device_type() != cuda)
+        lo, hi = window.start_ns(), window.end_ns()
+    busy, end = 0, lo
+    for start, stop in sorted((max(a, lo), min(b, hi)) for a, b in device):
         start = max(start, end)
         if stop > start:
             busy += stop - start
@@ -3617,6 +3647,443 @@ def lax_phases():
     return frames, {"compaction": compaction, "card_vs_cpu": card_vs_cpu}
 
 
+# Phases 36-39: reverse mode through the lax path (IntegrationConfig(
+# differentiable=True), checkpointed blocks of iterations). Phase 36 is
+# scripts/grad_scale_probe.py's grad_step on the port (the flagship preset at
+# LAX_GRAD_SIZE², float32, sky radius 40, step 0.05, checkpoint blocks of
+# LAX_GRAD_BLOCK, loss mean(log1p(max(c, 0)))) and phase 38 its inverse_fit
+# (a from 0.30 toward 0.45, lr 3e-2). Every iteration of the differentiable
+# loop is dispatched eagerly: on an H100 at 128² an iteration takes ~48 ms
+# forward and ~114 ms backward, the host's (scripts/lax_grad_probe.py,
+# PERF.md §6). Every lane of the frame stops within 1,024 iterations, so the
+# probe's budgets 20,000 and 2,000 run the same 1,024 (~166 s a value and
+# gradient). To keep the run in its limit on a slow host, phases 36 and 37
+# run at budget 100 (one block of 256 iterations) and the fit takes 2
+# steps at budget 100 in place of 12 at 2,000.
+LAX_GRAD_SIZE = 128
+LAX_GRAD_BLOCK = 256
+LAX_GRAD_RADIUS = 40.0
+LAX_GRAD_STEP = 0.05
+LAX_GRAD_BUDGET = 100
+# Phase 37: a LAX_GRAD_F64_SIDE² sub-grid of phase 36's frame (every
+# (LAX_GRAD_SIZE / LAX_GRAD_F64_SIDE)-th row and column) in float64 on the
+# card and on the CPU, at LAX_GRAD_F64_BUDGET; the bars: the
+# loss within 1e-9, the gradients within 1e-6 relative, the card's ∂a
+# against a central difference (step 1e-6) of its own forward at 5e-4.
+LAX_GRAD_F64_SIDE = 16
+LAX_GRAD_F64_BUDGET = 100
+LAX_GRAD_F64_BARS = dict(loss=1e-9, grads=1e-6, fd=5e-4, fd_step=1e-6)
+# Phase 38.
+LAX_FIT_BUDGET = 100
+LAX_FIT_STEPS = 2
+LAX_FIT_A = (0.30, 0.45)
+LAX_FIT_LR = 3e-2
+# Phase 39: schwarzschild.toml at LAX_GRAD_SIZE², float32, at this budget
+# (phase 33's sky radius).
+LAX_SCENE_BUDGET = 200
+# The seven parameter gradients of tests/test_grad.py: (name, component).
+LAX_GRAD_NAMES = (("a", None), ("radius", None), ("camera_position", 1), ("camera_theta", None),
+                  ("camera_psi", None), ("disc_temperature", None), ("disc_outer", None))
+
+
+def lax_probe_loss(color):
+    """grad_scale_probe.py's loss, mean(log1p(max(c, 0))) over the XYZ
+    channels, with jnp.maximum's gradient at 0."""
+    import torch
+
+    from gr_raytracer_tpu_torch.geometry.base import maximum
+
+    return torch.mean(torch.log1p(maximum(color[:, :3], 0.0)))
+
+
+def lax_flagship_render(size, budget, dtype, device, stride=1, block=LAX_GRAD_BLOCK, differentiable=True):
+    """render(params) -> the XYZA colors of the flagship preset's camera
+    rays through the lax path (scene.trace_rays) at every stride-th row and
+    column of a size² frame."""
+    import torch
+
+    from gr_raytracer_tpu_torch import presets
+    from gr_raytracer_tpu_torch.rendering import camera as cam
+    from gr_raytracer_tpu_torch.rendering import scene as scn
+
+    idx = torch.arange(0, size, stride, dtype=dtype, device=device)
+    rr, cc = torch.meshgrid(idx, idx, indexing="ij")
+    rows, cols = rr.ravel(), cc.ravel()
+
+    def render(params):
+        scene = presets.build_kerr_flagship(params, size, size, max_steps=budget, max_radius=LAX_GRAD_RADIUS,
+                                            step_size=LAX_GRAD_STEP, differentiable=differentiable)
+        scene = dataclasses.replace(scene, integration=dataclasses.replace(scene.integration,
+                                                                           checkpoint_block=block))
+        x, m = cam.pixel_rays(scene.camera, rows, cols)
+        return scn.trace_rays(scene, x, m).color
+
+    return render
+
+
+def _pick(grads, name, component):
+    g = grads[name]
+    return float(g if component is None else g[component])
+
+
+def lax_value_and_grad(render, params, names=LAX_GRAD_NAMES, loss_fn=None):
+    """One value and gradient of lax_probe_loss (or loss_fn(color)) through
+    render(params): the loss, {name: ∂}, forward and backward seconds (each
+    ended by a synchronize on a card), the loop's iterations, blocks,
+    lane-iterations and lanes per block (integrator.loop_stats), ms an
+    iteration each way, and the peak device memory."""
+    import torch
+
+    from gr_raytracer_tpu_torch.rendering import integrator as integ
+
+    loss_fn = loss_fn or lax_probe_loss
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    cuda = next(iter(leaves.values())).is_cuda
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    integ.loop_stats.clear()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    loss = loss_fn(render(leaves))
+    sync()
+    t1 = time.perf_counter()
+    st = {k: (list(v) if isinstance(v, list) else v) for k, v in integ.loop_stats.get("march_diff", {}).items()}
+    keys = sorted({n for n, _ in names})
+    g = torch.autograd.grad(loss, [leaves[k] for k in keys], allow_unused=True)
+    sync()
+    t2 = time.perf_counter()
+    grads = {k: (torch.zeros_like(leaves[k]) if v is None else v.detach()).cpu() for k, v in zip(keys, g)}
+    it = st.get("iterations", 0)
+    return {
+        "loss": float(loss.detach()), "grads": {f"{n}[{c}]" if c is not None else n: _pick(grads, n, c) for n, c in names},
+        "forward_s": t1 - t0, "backward_s": t2 - t1, "iterations": it, "blocks": st.get("blocks", 0),
+        "lane_iterations": st.get("lane_iterations", 0), "lanes_per_block": st.get("lanes_per_block", []),
+        "ms_per_iteration": {"forward": 1e3 * (t1 - t0) / max(it, 1), "backward": 1e3 * (t2 - t1) / max(it, 1)},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+    }
+
+
+def lax_grad_step(budget=LAX_GRAD_BUDGET, size=LAX_GRAD_SIZE, dtype=None, block=LAX_GRAD_BLOCK):
+    """Phase 36: one value and gradient of the flagship through the lax path
+    (grad_scale_probe.py's grad_step), and beside it the kernel-VJP
+    gradient of the same loss (fast_path.trace_rays_fast_diff: K1 and K2)
+    with its launches. Held: loss and every gradient finite, ∂a and
+    ∂radius nonzero."""
+    import math
+
+    import torch
+
+    from gr_raytracer_tpu_torch import presets
+    from gr_raytracer_tpu_torch.ops import geodesic_adjoint as gadj
+    from gr_raytracer_tpu_torch.ops import geodesic_march as gm
+    from gr_raytracer_tpu_torch.rendering import camera as cam
+    from gr_raytracer_tpu_torch.rendering import fast_path
+
+    dtype = dtype or torch.float32
+    params = presets.kerr_flagship_params(dtype, "cuda")
+    r = {"frame": f"{size}x{size}", "dtype": str(dtype).replace("torch.", ""), "budget": budget, "block": block,
+         **lax_value_and_grad(lax_flagship_render(size, budget, dtype, "cuda", block=block), params)}
+    spec = fast_path.scene_kernel_spec(presets.build_kerr_flagship(params, size, size, max_steps=budget))
+    idx = torch.arange(size, dtype=dtype, device="cuda")
+    rr, cc = torch.meshgrid(idx, idx, indexing="ij")
+
+    def kernel_render(p):
+        scene = presets.build_kerr_flagship(p, size, size, max_steps=budget, max_radius=LAX_GRAD_RADIUS,
+                                            step_size=LAX_GRAD_STEP)
+        x, m = cam.pixel_rays(scene.camera, rr.ravel(), cc.ravel())
+        return fast_path.trace_rays_fast_diff(scene, x, m, spec=spec).color
+
+    gm.launches = gadj.launches = 0
+    k = lax_value_and_grad(kernel_render, params)
+    r["kernel_vjp"] = {"loss": k["loss"], "grads": k["grads"], "s": k["forward_s"] + k["backward_s"],
+                       "k1_launches": gm.launches, "k2_launches": gadj.launches}
+    r["ok"] = (math.isfinite(r["loss"]) and all(math.isfinite(v) for v in r["grads"].values())
+               and r["grads"]["a"] != 0.0 and r["grads"]["radius"] != 0.0)
+    return r
+
+
+def _lax_grad_cpu(path, size, stride, budget):
+    """Phase 37's CPU side, in a process of its own: the flagship's
+    sub-grid in float64 through the lax path's reverse mode; saves the
+    result as JSON."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    torch.set_num_threads(1)
+    from gr_raytracer_tpu_torch import presets
+
+    r = lax_value_and_grad(lax_flagship_render(size, budget, torch.float64, "cpu", stride=stride),
+                           presets.kerr_flagship_params(torch.float64, "cpu"))
+    with open(path, "w") as f:
+        json.dump(r, f)
+
+
+def start_lax_grad_cpu(tmp):
+    """Starts phase 37's CPU side in a spawned process; returns (process,
+    result path)."""
+    import multiprocessing
+
+    path = os.path.join(tmp, "lax_grad_cpu.json")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_lax_grad_cpu, args=(path, LAX_GRAD_SIZE, LAX_GRAD_SIZE // LAX_GRAD_F64_SIDE, LAX_GRAD_F64_BUDGET),
+        daemon=True)
+    proc.start()
+    return proc, path
+
+
+def lax_grad_card_vs_cpu(proc, path):
+    """Phase 37: the sub-grid's loss and seven gradients in float64 on the
+    card against the CPU (the spawned process), and the card's ∂a against a
+    central difference of its own float64 forward."""
+    import torch
+
+    from gr_raytracer_tpu_torch import presets
+
+    dt, bars = torch.float64, LAX_GRAD_F64_BARS
+    stride = LAX_GRAD_SIZE // LAX_GRAD_F64_SIDE
+    params = presets.kerr_flagship_params(dt, "cuda")
+    render = lax_flagship_render(LAX_GRAD_SIZE, LAX_GRAD_F64_BUDGET, dt, "cuda", stride=stride)
+    card = lax_value_and_grad(render, params)
+    eps = bars["fd_step"]
+    with torch.no_grad():
+        up = float(lax_probe_loss(render(dict(params, a=params["a"] + eps))))
+        down = float(lax_probe_loss(render(dict(params, a=params["a"] - eps))))
+    fd = (up - down) / (2.0 * eps)
+    t0 = time.perf_counter()
+    proc.join()
+    wait_s = time.perf_counter() - t0
+    if proc.exitcode != 0:
+        fail(f"phase 37: the CPU side exited with {proc.exitcode}")
+    with open(path) as f:
+        cpu = json.load(f)
+    grad_rel = {k: abs(v - cpu["grads"][k]) / max(abs(cpu["grads"][k]), 1e-300) for k, v in card["grads"].items()}
+    r = {"rays": LAX_GRAD_F64_SIDE ** 2, "budget": LAX_GRAD_F64_BUDGET, "card": card,
+         "cpu": {k: cpu[k] for k in ("loss", "grads", "forward_s", "backward_s", "iterations", "blocks")},
+         "cpu_wait_s": wait_s, "loss_rel_err": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+         "grad_rel_err": grad_rel, "da_central_difference": fd,
+         "da_fd_rel_err": abs(card["grads"]["a"] - fd) / abs(fd), "bars": bars}
+    r["ok"] = (r["loss_rel_err"] <= bars["loss"] and max(grad_rel.values()) <= bars["grads"]
+               and r["da_fd_rel_err"] <= bars["fd"])
+    return r
+
+
+def lax_fit_phase(budget=LAX_FIT_BUDGET, steps=LAX_FIT_STEPS, size=LAX_GRAD_SIZE):
+    """Phase 38: grad_scale_probe.py's inverse_fit on the port's lax path:
+    `steps` (at least 2) steps of inverse.fit on a from LAX_FIT_A[0] toward
+    the target's LAX_FIT_A[1] (float32). Prints s a step (host clock
+    between the callbacks, after a synchronize; the steps before the last)
+    and the device-busy share of the last step (torch.profiler,
+    device_busy_share). Held: the loss falls and a ends nearer the target
+    than it started."""
+    import torch
+
+    from gr_raytracer_tpu_torch import inverse, presets
+
+    dt = torch.float32
+    a0, a_true = LAX_FIT_A
+    base = presets.kerr_flagship_params(dt, "cuda")
+    render = lax_flagship_render(size, budget, dt, "cuda")
+    with torch.no_grad():
+        target = render(dict(base, a=torch.tensor(a_true, dtype=dt, device="cuda")))
+    rows, marks = [], [time.perf_counter()]
+    # The last step runs under the profiler, started and stopped from the
+    # callbacks around it; the trace records the device alone (a step
+    # dispatches every op of every iteration three times, and a trace of
+    # its host ops holds millions of events). Its time is taken between
+    # two CUDA events.
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def callback(i, loss, p, grads):
+        if i == steps - 1:
+            stop.record()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if i == steps - 1:
+            prof.stop()
+        rows.append({"step": i, "loss": loss, "a": float(p["a"].detach()), "da": float(grads["a"]),
+                     "s": marks[-1] - marks[-2], "profiled": i == steps - 1})
+        print(json.dumps({"lax_fit_step": rows[-1]}), flush=True)
+        if i == steps - 2:
+            prof.start()
+            start.record()
+            marks[-1] = time.perf_counter()
+
+    init = dict(base, a=torch.tensor(a0, dtype=dt, device="cuda"))
+    fitted, losses = inverse.fit(render, init, target, trainable=("a",), steps=steps, learning_rate=LAX_FIT_LR,
+                                 callback=callback)
+    t0 = time.perf_counter()
+    busy = device_busy_share(prof)
+    a_end = float(fitted["a"])
+    r = {"frame": f"{size}x{size}", "budget": budget, "steps": steps, "a_init": a0, "a_true": a_true,
+         "a_end": a_end, "loss_first": losses[0], "loss_last": losses[-1],
+         "s_per_step": sum(x["s"] for x in rows[:-1]) / (len(rows) - 1), "device_busy": busy,
+         "profiled_step_s": start.elapsed_time(stop) * 1e-3, "trace_read_s": time.perf_counter() - t0}
+    r["ok"] = losses[-1] < losses[0] and abs(a_end - a_true) < abs(a0 - a_true)
+    return r
+
+
+def lax_chords():
+    """tests/test_grad.py's 16 chords through a gas annulus and the disc of
+    its raymarch test: (ro, rd, obs, p_t, p_phi) as numpy arrays, and
+    make_disc(med, dtype, device, differentiable) -> the VolumetricDisc with
+    the five medium parameters `med` (LAX_CHORD_NAMES)."""
+    import numpy as np
+
+    from gr_raytracer_tpu_torch.objects.volumetric_disc import VolumetricDisc
+    from gr_raytracer_tpu_torch.rendering.temperature import ConstantTemperature
+    from gr_raytracer_tpu_torch.rendering.texture import BlackBodyMap
+
+    rng = np.random.default_rng(11)
+    n = 16
+    phi = rng.uniform(0.0, 2 * np.pi, n)
+    r0 = rng.uniform(2.6, 4.5, n)
+    ro = np.stack([r0 * np.cos(phi), r0 * np.sin(phi), rng.uniform(-0.2, 0.2, n)], -1)
+    tang = np.stack([-np.sin(phi), np.cos(phi), 0.1 * rng.standard_normal(n)], -1)
+    rd = tang / np.linalg.norm(tang, axis=-1, keepdims=True)
+
+    def make_disc(med, dtype, device, differentiable):
+        import torch
+
+        return VolumetricDisc.create(
+            inner_radius=2.2, outer_radius=5.0,
+            temperature_model=ConstantTemperature(torch.tensor(5000.0, dtype=dtype, device=device)),
+            texture=BlackBodyMap.create(0.0, dtype, device), num_octaves=4, max_steps=500, step_size=0.01,
+            thickness=0.3, noise_scale=(2.0, 2.0, 2.0), dtype=dtype, device=device,
+            differentiable=differentiable, **dict(zip(LAX_CHORD_NAMES, med)))
+
+    return (ro, rd, np.ones(n), np.full(n, 1.0), np.full(n, 0.2)), make_disc
+
+
+# The chords' disc's five medium parameters, in volumetric_march.MED_NAMES'
+# order.
+LAX_CHORD_NAMES = ("density_multiplier", "noise_offset", "absorption", "scattering",
+                   "brightness_reference_temperature")
+LAX_CHORD_MEDIUM = (5.0, 0.4, 0.3, 0.4, 1000.0)
+
+
+def lax_raymarch_grad(device):
+    """The differentiable raymarch on the chords in float64 on `device`:
+    (XYZA [16, 4] as numpy, the five medium gradients of Σ c / (1 + c),
+    seconds)."""
+    import torch
+
+    from gr_raytracer_tpu_torch.geometry.kerr import Kerr
+
+    dt = torch.float64
+    lanes, make_disc = lax_chords()
+    args = [torch.as_tensor(v, dtype=dt, device=device) for v in lanes] + [
+        torch.ones(16, dtype=torch.bool, device=device)]
+    geo = Kerr(radius=torch.tensor(1.0, dtype=dt, device=device), a=torch.tensor(0.3, dtype=dt, device=device),
+               horizon_epsilon=torch.tensor(1e-3, dtype=dt, device=device))
+    med = torch.tensor(LAX_CHORD_MEDIUM, dtype=dt, device=device, requires_grad=True)
+    t0 = time.perf_counter()
+    out = make_disc(list(med.unbind()), dt, device, True).raymarch(geo, *args)
+    c = out[..., :3]
+    (g,) = torch.autograd.grad(torch.sum(c / (1.0 + c)), [med])
+    if out.is_cuda:
+        torch.cuda.synchronize()
+    return out.detach().cpu().numpy(), g.cpu().numpy(), time.perf_counter() - t0
+
+
+def lax_scene_phase(budget=LAX_SCENE_BUDGET, size=LAX_GRAD_SIZE):
+    """Phase 39: scenes outside fast_path.supports_diff on the card.
+    schwarzschild.toml at size² in float32 (sky radius 40, `budget`): the
+    value and gradient of lax_probe_loss in the Schwarzschild radius and
+    the sphere's radius, held finite and nonzero, with at least one ray
+    that meets the sphere (counted and printed); the differentiable
+    raymarch on the 16 chords, float64 on the card against the CPU within
+    F64_RTOL (XYZA per lane's scale, the five gradients relative)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from gr_raytracer_tpu_torch.objects.sphere import Sphere
+    from gr_raytracer_tpu_torch.rendering import camera as cam
+    from gr_raytracer_tpu_torch.rendering import fast_path
+    from gr_raytracer_tpu_torch.rendering import scene as scn
+
+    scene = lax_scene(SCHWARZSCHILD_TOML, size, BL_CAMERA_KW, torch.float32)
+    if fast_path.supports_diff(scene):
+        fail("phase 39: schwarzschild.toml is a supports_diff scene")
+    scene = dataclasses.replace(scene, integration=dataclasses.replace(
+        scene.integration, max_steps=budget, differentiable=True, checkpoint_block=LAX_GRAD_BLOCK))
+    sphere = next(i for i, o in enumerate(scene.objects) if isinstance(o, Sphere))
+    idx = torch.arange(size, dtype=torch.float32, device="cuda")
+    rr, cc = torch.meshgrid(idx, idx, indexing="ij")
+    x, m = cam.pixel_rays(scene.camera, rr.ravel(), cc.ravel())
+
+    def render(p):
+        objects = list(scene.objects)
+        objects[sphere] = dataclasses.replace(objects[sphere], radius=p["sphere_radius"])
+        s = dataclasses.replace(scene, geometry=dataclasses.replace(scene.geometry, radius=p["radius"]),
+                                objects=tuple(objects))
+        # The sphere's events, read where trace_rays hands its march to the
+        # shading: the sphere's gradient rests on these rays alone.
+        inner = scn.finish_rays
+
+        def finish(scene_, freq, solver, res):
+            on = res.ev_kind == sphere
+            render.sphere = {"rays": int(on.any(dim=1).sum()), "first_event": int(on[:, 0].sum())}
+            return inner(scene_, freq, solver, res)
+
+        scn.finish_rays = finish
+        try:
+            out = scn.trace_rays(s, x, m)
+        finally:
+            scn.finish_rays = inner
+        render.kinds = torch.bincount(out.ray_class.long(), minlength=3).tolist()
+        return out.color
+
+    params = {"radius": scene.geometry.radius, "sphere_radius": scene.objects[sphere].radius}
+    r = {"scene": "schwarzschild.toml", "frame": f"{size}x{size}", "budget": budget,
+         **lax_value_and_grad(render, params, names=(("radius", None), ("sphere_radius", None)))}
+    r["ray_classes"], r["sphere_events"] = render.kinds, render.sphere
+    got, g_card, card_s = lax_raymarch_grad("cuda")
+    ref, g_cpu, cpu_s = lax_raymarch_grad("cpu")
+    scale = np.maximum(np.abs(ref).max(axis=1), 1e-300)
+    chords = {"card_s": card_s, "cpu_s": cpu_s, "xyza_rel_err": float((np.abs(got - ref).max(axis=1) / scale).max()),
+              "grad_rel_err": float((np.abs(g_card - g_cpu) / np.maximum(np.abs(g_cpu), 1e-300)).max()),
+              "grads": dict(zip(LAX_CHORD_NAMES, g_card.tolist())),
+              "bar": F64_RTOL}
+    r["chords"] = chords
+    r["ok"] = (math.isfinite(r["loss"]) and all(math.isfinite(v) and v != 0.0 for v in r["grads"].values())
+               and render.sphere["rays"] > 0 and chords["xyza_rel_err"] <= F64_RTOL and chords["grad_rel_err"] <= F64_RTOL)
+    return r
+
+
+def lax_grad_phases(card):
+    """Phases 36-39; returns {phase: result}. Each result line carries the
+    card's name and power limit."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # Phase 37's CPU side runs while the card works on phase 36.
+        cpu_job = start_lax_grad_cpu(tmp)
+        phase("36. lax gradient: one value and gradient of the 128² flagship (grad_scale_probe.py's grad_step)")
+        out["grad_step"] = lax_grad_step()
+        print(json.dumps({"lax_grad_step": out["grad_step"], "card": card}), flush=True)
+        if not out["grad_step"]["ok"]:
+            fail(f"the lax gradient step is not finite or ∂a, ∂radius vanish: {out['grad_step']}")
+        phase("37. lax gradient in float64 on the card against the CPU")
+        out["card_vs_cpu"] = lax_grad_card_vs_cpu(*cpu_job)
+        print(json.dumps({"lax_grad_card_vs_cpu": out["card_vs_cpu"], "card": card}), flush=True)
+        if not out["card_vs_cpu"]["ok"]:
+            fail(f"the lax gradient on the card disagrees with the CPU: {out['card_vs_cpu']}")
+    phase("38. lax inverse fit: the spin from 0.30 toward 0.45 (grad_scale_probe.py's inverse_fit)")
+    out["fit"] = lax_fit_phase()
+    print(json.dumps({"lax_fit": out["fit"], "card": card}), flush=True)
+    if not out["fit"]["ok"]:
+        fail(f"the lax spin fit does not move toward the target: {out['fit']}")
+    phase("39. lax gradient outside supports_diff: schwarzschild.toml and the differentiable raymarch")
+    out["scenes"] = lax_scene_phase()
+    print(json.dumps({"lax_grad_scenes": out["scenes"], "card": card}), flush=True)
+    if not out["scenes"]["ok"]:
+        fail(f"a lax gradient outside supports_diff fails: {out['scenes']}")
+    return out
+
+
 def main():
     import math
 
@@ -3993,6 +4460,7 @@ def main():
     print(json.dumps({"split": split}), flush=True)
     if not split["ok"]:
         fail(f"the split path disagrees: {split}")
+    lax_grad_phases(card)
 
     phase("32. kernels")
     prod = variants[(torch.float32, False)]

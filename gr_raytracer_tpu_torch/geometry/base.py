@@ -35,6 +35,66 @@ def dot(v, w):
     return out
 
 
+# The JAX package's elementwise bounds, with its gradients. At a tie,
+# jnp.maximum, jnp.minimum and jnp.clip pass half of the gradient to each
+# side, where torch.clamp passes all of it to its input; torch.maximum and
+# torch.minimum split it as JAX does. jnp.abs has derivative 1 at 0, where
+# torch.abs has 0. Each gives the same bits as the torch op it replaces.
+
+
+def _bound(x, b):
+    # A float bound becomes a 0-dim CPU tensor, which a CUDA op takes as a
+    # scalar argument: no fill kernel, no tensor the size of x and no copy
+    # to the card (a CUDA graph captures it).
+    return b if isinstance(b, torch.Tensor) else torch.scalar_tensor(b, dtype=x.dtype)
+
+
+def maximum(x, lo):
+    """jnp.maximum(x, lo) for a float or tensor bound."""
+    return torch.maximum(x, _bound(x, lo))
+
+
+def minimum(x, hi):
+    """jnp.minimum(x, hi) for a float or tensor bound."""
+    return torch.minimum(x, _bound(x, hi))
+
+
+def clip(x, lo, hi):
+    """jnp.clip(x, lo, hi): the maximum, then the minimum."""
+    return minimum(maximum(x, lo), hi)
+
+
+def abs_(x):
+    """jnp.abs(x): |x| (−0 gives +0) with derivative 1 at 0."""
+    return torch.where(x >= 0.0, x, -x) + 0.0
+
+
+def acos_clip(x):
+    """arccos(clip(x, −1, 1)), with a zero gradient at ±1, where arccos' is
+    infinite. A lane whose point lies on an axis there (a sphere's or a
+    chart's; a float32 lane that stalls meets it) passes g = 0 through an
+    unused branch, and g·∞ = NaN would spread through its state, as in
+    the JAX package's reverse mode. Same bits as the plain form, which
+    runs where nothing needs the gradient."""
+    c = clip(x, -1.0, 1.0)
+    if not (torch.is_grad_enabled() and c.requires_grad):
+        return torch.acos(c)
+    pole = (c <= -1.0) | (c >= 1.0)
+    return torch.where(pole, torch.acos(c.detach()), torch.acos(torch.where(pole, 0.0, c)))
+
+
+def sqrt_nonneg(x):
+    """√max(x, 0) (NaN stays NaN) with a zero gradient where x ≤ 0. A
+    segment test's discriminant is exactly 0 on the zero-length segments
+    of lanes that did not move in an iteration, where
+    jnp.sqrt(jnp.maximum(x, 0)) has the gradient 0.5·∞·0 = NaN: it spreads
+    through the lane's state into every parameter, though the root is
+    masked out (the JAX package's reverse mode through the lax path has
+    it, ROADMAP Queue 3)."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), torch.where(x <= 0.0, 0.0, x))
+
+
 def unit_time_vector(x):
     """e_t = (1, 0, 0, 0) broadcast like x."""
     e_t = torch.zeros_like(x)
@@ -100,7 +160,7 @@ def gram_schmidt(geometry, x, vectors):
             num = geometry.inner_product(x, w, u)
             den = geometry.inner_product(x, u, u)
             w = w - (num / den)[..., None] * u
-        norm = torch.sqrt(torch.abs(geometry.inner_product(x, w, w)))
+        norm = torch.sqrt(abs_(geometry.inner_product(x, w, w)))
         out.append(w / norm[..., None])
     return torch.stack(out, dim=-2)
 

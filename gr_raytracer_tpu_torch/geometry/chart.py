@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from gr_raytracer_tpu_torch.geometry.base import acos_clip
+
 CARTESIAN = "cartesian"
 SPHERICAL = "spherical"
 BOYER_LINDQUIST = "boyer_lindquist"
@@ -44,7 +46,7 @@ def cartesian_to_spherical(p):
     t, x, y, z = p[..., 0], p[..., 1], p[..., 2], p[..., 3]
     r = torch.sqrt(x * x + y * y + z * z)
     safe_r = torch.where(r > 0.0, r, 1.0)
-    theta = torch.where(r > 0.0, torch.arccos(torch.clamp(z / safe_r, -1.0, 1.0)), 0.0)
+    theta = torch.where(r > 0.0, acos_clip(z / safe_r), 0.0)
     phi = torch.where(r > 0.0, torch.arctan2(y, x), 0.0)
     return torch.stack([t, r, theta, phi], dim=-1)
 
@@ -72,7 +74,7 @@ def cartesian_to_bl(a, p):
     t, x, y, z = p[..., 0], p[..., 1], p[..., 2], p[..., 3]
     r = torch.sqrt(bl_radius_sq_from_cartesian(a, x, y, z))
     safe_r = torch.where(r > 0.0, r, 1.0)
-    theta = torch.where(r > 0.0, torch.arccos(torch.clamp(z / safe_r, -1.0, 1.0)), 0.0)
+    theta = torch.where(r > 0.0, acos_clip(z / safe_r), 0.0)
     phi = torch.arctan2(r * y - a * x, r * x + a * y)
     return torch.stack([t, r, theta, phi], dim=-1)
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from gr_raytracer_tpu_torch.geometry.base import maximum
+
 
 def bl_metric_components_at(r_s, a, r, theta):
     """(g_tt, g_tφ, g_φφ) of the BL metric at (r, θ)."""
@@ -56,7 +58,7 @@ def killing_coefficients(r_s, a, r):
     g_tt, g_tphi, g_phiphi = bl_metric_components(r_s, a, r)
     ut_pre = g_tt + 2.0 * omega * g_tphi + omega * omega * g_phiphi
     ok = ut_pre < 0.0
-    safe = torch.where(ok, torch.clamp(-ut_pre, min=1e-12), 1.0)
+    safe = torch.where(ok, maximum(-ut_pre, 1e-12), 1.0)
     u_t = torch.where(ok, 1.0 / torch.sqrt(safe), 0.0)
     return u_t, omega * u_t, ok
 

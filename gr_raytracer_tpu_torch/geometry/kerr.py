@@ -19,8 +19,10 @@ from gr_raytracer_tpu_torch.geometry import circular_orbit
 from gr_raytracer_tpu_torch.geometry.base import (
     TRAPPED_ORBIT_RADIUS_FACTOR,
     Geometry,
+    acos_clip,
     gram_schmidt,
     lower,
+    maximum,
     unit_time_vector,
 )
 
@@ -125,7 +127,7 @@ class Kerr(Geometry):
     def inside_horizon(self, x):
         m = 0.5 * self.radius
         r = torch.sqrt(charts.bl_radius_sq_from_cartesian(self.a, x[..., 1], x[..., 2], x[..., 3]))
-        rp = m + torch.sqrt(torch.clamp(m * m - self.a * self.a, min=0.0))
+        rp = m + torch.sqrt(maximum(m * m - self.a * self.a, 0.0))
         over_extremal = torch.abs(self.a) > m
         return (r <= rp + self.horizon_epsilon) & ~over_extremal
 
@@ -151,7 +153,7 @@ class Kerr(Geometry):
         r = torch.sqrt(charts.bl_radius_sq_from_cartesian(self.a, xs, ys, zs))
         theta = torch.where(
             r > 0.0,
-            torch.arccos(torch.clamp(zs / torch.where(r > 0.0, r, 1.0), -1.0, 1.0)),
+            acos_clip(zs / torch.where(r > 0.0, r, 1.0)),
             0.0,
         )
         u_t, u_phi = circular_orbit.zamo_killing_coefficients(self.radius, self.a, r, theta)

@@ -20,7 +20,7 @@ import torch
 
 from gr_raytracer_tpu_torch.geometry import chart as charts
 from gr_raytracer_tpu_torch.geometry import circular_orbit
-from gr_raytracer_tpu_torch.geometry.base import TRAPPED_ORBIT_RADIUS_FACTOR, Geometry, gram_schmidt, lower
+from gr_raytracer_tpu_torch.geometry.base import TRAPPED_ORBIT_RADIUS_FACTOR, Geometry, gram_schmidt, lower, maximum
 
 # Floor for sin²θ in the Carter-constant axis guard.
 SIN2_FLOOR = 1e-28
@@ -36,8 +36,8 @@ def _turning_safe_sqrt(pot):
     in f32 the potential often rounds to 0), where d√x is infinite: the
     JAX package measured NaN parameter gradients from it on the chip, and
     zero is the defensible subgradient there."""
-    val = torch.sqrt(torch.clamp(pot, min=0.0))
-    capped = torch.sqrt(torch.clamp(pot, min=_POT_GRAD_FLOOR))
+    val = torch.sqrt(maximum(pot, 0.0))
+    capped = torch.sqrt(maximum(pot, _POT_GRAD_FLOOR))
     return torch.where(pot > _POT_GRAD_FLOOR, capped, val.detach())
 
 
@@ -206,7 +206,7 @@ class KerrBL(Geometry):
 
     def inside_horizon(self, x):
         m = 0.5 * self.radius
-        rp = m + torch.sqrt(torch.clamp(m * m - self.a * self.a, min=0.0))
+        rp = m + torch.sqrt(maximum(m * m - self.a * self.a, 0.0))
         over_extremal = torch.abs(self.a) > m
         return (x[..., 1] <= rp + self.horizon_epsilon) & ~over_extremal
 
@@ -252,7 +252,7 @@ class KerrBL(Geometry):
         ct = torch.cos(theta)
         sin2 = _sin2(theta)
         q = p_theta * p_theta + ct * ct * (
-            l_z * l_z / torch.clamp(sin2, min=SIN2_FLOOR) - self.a * self.a * e * e
+            l_z * l_z / maximum(sin2, SIN2_FLOOR) - self.a * self.a * e * e
         )
         return e, l_z, q
 

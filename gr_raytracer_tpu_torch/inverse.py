@@ -6,7 +6,13 @@ kernel path (rendering/fast_path.trace_rays_fast_diff), so a scalar image
 loss drives torch.autograd on physical parameters: spin, camera pose, disc
 temperature. On a volumetric scene the raymarch is differentiable in the
 five medium parameters (fast_path.trace_rays_fast_vol_diff;
-`medium_render` fits density_multiplier and absorption).
+`medium_render` fits density_multiplier and absorption). A scene outside
+fast_path.supports_diff (a KerrBL or Schwarzschild scene with a sphere, a
+texture that is not opaque, a gas disc whose axis is not z) takes the
+RKF45 route: scene.trace_rays with IntegrationConfig(differentiable=True)
+(presets.build_kerr_flagship(..., differentiable=True) sets it), whose
+loop runs in checkpointed blocks, and VolumetricDisc(differentiable=True)
+for its raymarch.
 
 Loss design: the renderer returns HDR CIE XYZ radiance spanning ~6 decades.
 A plain L2 loss is dominated by the brightest pixels; log1p keeps relative

@@ -15,6 +15,8 @@ from dataclasses import dataclass
 
 import torch
 
+from gr_raytracer_tpu_torch.geometry.base import acos_clip, sqrt_nonneg
+
 
 @dataclass(frozen=True)
 class Sphere:
@@ -39,7 +41,7 @@ class Sphere:
         b = 2.0 * torch.sum(s * d, dim=-1)
         c = rs - r2
         disc = b * b - 4.0 * a * c
-        sqrt_disc = torch.sqrt(torch.clamp(disc, min=0.0))
+        sqrt_disc = sqrt_nonneg(disc)
         safe_a = torch.where(a != 0.0, a, 1.0)
         t1 = (-b + sqrt_disc) / (2.0 * safe_a)
         t2 = (-b - sqrt_disc) / (2.0 * safe_a)
@@ -51,7 +53,7 @@ class Sphere:
         local = s + t[..., None] * d
         r_loc = torch.sqrt(torch.sum(local * local, dim=-1))
         safe_r = torch.where(r_loc > 0.0, r_loc, 1.0)
-        theta = torch.acos(torch.clamp(local[..., 2] / safe_r, -1.0, 1.0))
+        theta = acos_clip(local[..., 2] / safe_r)
         phi = torch.atan2(local[..., 1], local[..., 0])
         u = 1.0 - (math.pi + phi) / (2.0 * math.pi)
         v = theta / math.pi

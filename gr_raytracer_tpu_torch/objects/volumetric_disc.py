@@ -1,6 +1,5 @@
 """Perlin-noise volumetric accretion disc (port of
-gr_raytracer_tpu/objects/volumetric_disc.py; its raymarch's while-loop
-branch).
+gr_raytracer_tpu/objects/volumetric_disc.py).
 
 The bounding volume is an inner and an outer cylinder clipped to
 ±3·thickness caps. The march records where a ray segment crosses its
@@ -14,7 +13,9 @@ emission weighting and texture alpha. The kernel path raymarches with K5
 and texture); `raymarch` is the RKF45 path's, for any axis, with the
 scene's own temperature model and texture, and runs its samples through
 integrator.run_lanes (on the card a CUDA graph of one loop iteration, up
-to RAYMARCH_UNROLL samples of every lane still marching). Projections onto
+to RAYMARCH_UNROLL samples of every lane still marching); with
+differentiable=True it runs its samples in checkpointed segments
+(integrator.run_blocks), for reverse mode. Projections onto
 the axis and the disc-plane basis sum elementwise in index order
 (`_along`), on both paths, as every per-ray contraction does.
 """
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from gr_raytracer_tpu_torch.geometry import chart as charts
-from gr_raytracer_tpu_torch.geometry.base import dot
+from gr_raytracer_tpu_torch.geometry.base import abs_, clip, dot, maximum, sqrt_nonneg
 from gr_raytracer_tpu_torch.ops import noise
 
 MIN_INTERSECTION_T = 1e-9
@@ -45,6 +46,8 @@ ALPHA_WT_MIN = 1e-18
 # RAYMARCH_BATCH (the iteration's per-sample terms are [lanes, samples]).
 RAYMARCH_UNROLL = 32
 RAYMARCH_BATCH = 1 << 21
+# The differentiable raymarch's checkpointed segments: samples, at most.
+RAYMARCH_SEGMENT = 256
 
 
 def _along(v, w):
@@ -73,6 +76,8 @@ class VolumetricDisc:
     step_size: torch.Tensor
     num_octaves: int
     max_steps: int
+    # Reverse mode through `raymarch`: checkpointed segments of samples.
+    differentiable: bool = False
 
     @classmethod
     def create(
@@ -80,7 +85,7 @@ class VolumetricDisc:
         num_octaves=8, perlin_seed=0, max_steps=50000, step_size=0.001, thickness=0.03,
         density_multiplier=500.0, brightness_reference_temperature=1000.0, absorption=0.3,
         scattering=0.4, noise_scale=(1.0, 1.0, 1.0), noise_offset=0.0, dtype=torch.float64,
-        device="cpu",
+        device="cpu", differentiable=False,
     ):
         ax = np.asarray(axis, np.float64)
         if np.dot(ax, ax) <= np.finfo(np.float64).eps:
@@ -92,7 +97,9 @@ class VolumetricDisc:
         e1 = e1 / np.linalg.norm(e1)
         e2 = np.cross(ax, e1)
         e2 = e2 / np.linalg.norm(e2)
-        as_ = lambda v: torch.as_tensor(np.asarray(v, np.float64), dtype=dtype, device=device)
+        # A tensor parameter keeps its graph (a differentiable medium).
+        as_ = lambda v: (v.to(dtype=dtype, device=device) if isinstance(v, torch.Tensor)  # noqa: E731
+                         else torch.as_tensor(np.asarray(v, np.float64), dtype=dtype, device=device))
         return cls(
             inner_radius=as_(inner_radius), outer_radius=as_(outer_radius),
             temperature_model=temperature_model, texture=texture, axis=as_(ax), e1=as_(e1),
@@ -101,7 +108,7 @@ class VolumetricDisc:
             brightness_reference_temperature=as_(brightness_reference_temperature),
             absorption=as_(absorption), scattering=as_(scattering), noise_scale=as_(noise_scale),
             noise_offset=as_(noise_offset), step_size=as_(step_size), num_octaves=int(num_octaves),
-            max_steps=int(max_steps),
+            max_steps=int(max_steps), differentiable=bool(differentiable),
         )
 
     def axis_is_z(self) -> bool:
@@ -110,21 +117,21 @@ class VolumetricDisc:
 
     def density(self, p):
         """Perlin-fBm gas density at points p [..., 3]."""
-        h = torch.abs(_along(p, self.axis))
+        h = abs_(_along(p, self.axis))
         cross = torch.linalg.cross(p, self.axis.expand_as(p))
-        r = torch.sqrt(torch.clamp(dot(cross, cross), min=1e-30))
+        r = torch.sqrt(maximum(dot(cross, cross), 1e-30))
         inside = (r > self.inner_radius) & (r < self.outer_radius)
         hr = h / self.thickness
         vertical = torch.exp(-(hr * hr))
         inside = inside & (vertical >= DENSITY_VERTICAL_CUTOFF)
         # The envelope radius is floored at inner/2: the density is 0 there
         # anyway, and the floor keeps (inner/r)^1.5 finite on the axis.
-        safe_r = torch.maximum(r, torch.clamp(0.5 * self.inner_radius, min=1e-3))
+        safe_r = maximum(r, maximum(0.5 * self.inner_radius, 1e-3))
         radial_base = torch.pow(self.inner_radius / safe_r, 1.5)
         out_gap = self.outer_radius - safe_r
         in_gap = safe_r - self.inner_radius
         boundary = torch.exp(
-            -1.0 / torch.clamp(out_gap * out_gap, min=1e-4) - 1.0 / torch.clamp(in_gap * in_gap, min=1e-4)
+            -1.0 / maximum(out_gap * out_gap, 1e-4) - 1.0 / maximum(in_gap * in_gap, 1e-4)
         )
         # cos φ and sin φ of the in-plane azimuth: |p × axis| = r.
         cphi = _along(p, self.e1) / safe_r
@@ -134,7 +141,7 @@ class VolumetricDisc:
         n = noise.fbm(self.key, noise_p, self.num_octaves, 0.5)
         vert_p = torch.stack([r * 0.5, h * self.noise_scale[2], cphi], dim=-1)
         n = n + 0.5 * noise.perlin3(self.key, vert_p)
-        n = torch.clamp(n + self.noise_offset, min=0.0) * self.density_multiplier
+        n = maximum(n + self.noise_offset, 0.0) * self.density_multiplier
         return torch.where(inside, n * radial_base * vertical * boundary, 0.0)
 
     def uv(self, p):
@@ -162,7 +169,7 @@ class VolumetricDisc:
             c = torch.sum(v * v, dim=-1) - radius * radius
             disc = b * b - 4.0 * a * c
             ok = (a >= 1e-10 * torch.sum(d * d, dim=-1)) & (disc >= 0.0)
-            sq = torch.sqrt(torch.clamp(disc, min=0.0))
+            sq = sqrt_nonneg(disc)
             safe_a = torch.where(a > 0.0, a, 1.0)
             roots = []
             for sign in (-1.0, 1.0):
@@ -227,8 +234,14 @@ class VolumetricDisc:
         sample at a time gives. The default takes 1 on the CPU (the lanes
         keep their places in the vectors) and on the card up to
         RAYMARCH_UNROLL, as many as keep M · unroll within
-        RAYMARCH_BATCH."""
-        from gr_raytracer_tpu_torch.rendering.integrator import run_lanes
+        RAYMARCH_BATCH.
+
+        differentiable (the object's field): segments of
+        min(RAYMARCH_SEGMENT, max_steps) samples (rounded up to whole
+        iterations), each checkpointed and skipped once every lane is done
+        (integrator.run_blocks), as the JAX package's; a lane's samples
+        stop at max_steps in both forms, so their forwards are equal."""
+        from gr_raytracer_tpu_torch.rendering.integrator import run_blocks, run_lanes
 
         dtype, device = ro.dtype, ro.device
         m = ro.shape[0]
@@ -247,8 +260,22 @@ class VolumetricDisc:
             taken=torch.zeros((m,), dtype=torch.int32, device=device),
         )
         lanes = dict(ro=ro, rd=rd, obs=obs_energy, p_t=p_t, p_phi=p_phi, exit_d=exit_d)
-        carry = run_lanes(lambda c, ln: self._samples(geometry, c, ln, unroll), carry, lanes, lambda c: ~c["done"],
-                          -(-self.max_steps // unroll), compact=compact and ro.is_cuda, name="raymarch")
+        step = lambda c, ln: self._samples(geometry, c, ln, unroll)  # noqa: E731
+        running = lambda c: ~c["done"]  # noqa: E731
+        compact = compact and ro.is_cuda
+        if self.differentiable:
+            iters = -(-min(RAYMARCH_SEGMENT, self.max_steps) // unroll)
+
+            def segment(c, ln):
+                for _ in range(iters):
+                    c = step(c, ln)
+                return c
+
+            carry = run_blocks(segment, carry, lanes, running, -(-self.max_steps // (iters * unroll)), iters,
+                               compact, name="raymarch_diff")
+        else:
+            carry = run_lanes(step, carry, lanes, running, -(-self.max_steps // unroll), compact=compact,
+                              name="raymarch")
         physical_opacity = 1.0 - carry["transparency"]
         wt = carry["alpha_w_tot"]
         texture_alpha = torch.where(
@@ -279,7 +306,7 @@ class VolumetricDisc:
         redshift = torch.where(emits, ln["obs"][:, None] / safe_e, 1.0)
 
         cross = torch.linalg.cross(p, self.axis.expand_as(p))
-        r_dist = torch.sqrt(torch.clamp(dot(cross, cross), min=1e-30))
+        r_dist = torch.sqrt(maximum(dot(cross, cross), 1e-30))
         temperature = self.temperature_model.at(r_dist)
         u, v = self.uv(p)
         light = self.texture.color_at_uv(u, v, temperature, redshift)
@@ -301,7 +328,7 @@ class VolumetricDisc:
             accum = torch.where(
                 live[:, None], accum + (weight * intensity[:, k] * emit_mask)[..., None] * light[:, k, :3], accum)
             alpha_w = torch.where(live_emit, density * d_s, 0.0)
-            alpha_w_sum = torch.where(live, alpha_w_sum + torch.clamp(light[:, k, 3], 0.0, 1.0) * alpha_w, alpha_w_sum)
+            alpha_w_sum = torch.where(live, alpha_w_sum + clip(light[:, k, 3], 0.0, 1.0) * alpha_w, alpha_w_sum)
             alpha_w_tot = torch.where(live, alpha_w_tot + alpha_w, alpha_w_tot)
             d_o = torch.where(live, dist[k + 1], d_o)
             done = done | (live & ((dist[k + 1] >= ln["exit_d"]) | (transparency < SATURATION_EPS)))
@@ -320,12 +347,12 @@ class VolumetricDisc:
         if slots.numel():
             ev = res.ev_data.reshape(n * k, -1)[slots]
             seg = ev[:, 9:12]
-            rd = seg / torch.sqrt(torch.clamp(dot(seg, seg), min=1e-30))[:, None]
+            rd = seg / torch.sqrt(maximum(dot(seg, seg), 1e-30))[:, None]
             ray = slots // k
-            out[slots] = self.raymarch(
+            out = out.index_put((slots,), self.raymarch(
                 geometry, ev[:, 0:3], rd, freq.observer_energy[ray], freq.p_t[ray], freq.p_phi[ray],
                 torch.ones_like(slots, dtype=torch.bool), compact=compact,
-            )
+            ))
         return out.reshape(n, k, 4)
 
 

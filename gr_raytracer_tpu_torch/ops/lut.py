@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from gr_raytracer_tpu_torch.geometry.base import clip
+
 
 def uniform_interp(x, x0, dx, values):
     """Linear interpolation of `values` sampled at x0 + k·dx, clamped at the
@@ -18,7 +20,7 @@ def uniform_interp(x, x0, dx, values):
     length = values.shape[0]
     t = (x - x0) / dx
     idx = torch.nan_to_num(torch.clamp(torch.floor(t), 0, length - 2), nan=0.0).to(torch.int64)
-    frac = torch.clamp(t - idx, 0.0, 1.0)
+    frac = clip(t - idx, 0.0, 1.0)
     lo = values[idx]
     hi = values[idx + 1]
     if values.ndim == 2:

@@ -57,8 +57,11 @@ def build_kerr_flagship(
     step_size: float = 0.05,
     epsilon: float = 1e-5,
     validate: bool = False,
+    differentiable: bool = False,
 ):
-    """Kerr (Kerr-Schild) + blackbody Novikov-Thorne disc + checker sky."""
+    """Kerr (Kerr-Schild) + blackbody Novikov-Thorne disc + checker sky.
+    differentiable=True takes the RKF45 path's reverse-mode loop
+    (IntegrationConfig.differentiable) for `scene.trace_rays`."""
     radius = params["radius"]
     dtype, device = radius.dtype, radius.device
     geometry = Kerr(
@@ -90,6 +93,7 @@ def build_kerr_flagship(
         step_size=float(step_size),
         epsilon=float(epsilon),
         max_steps=max_steps,
+        differentiable=differentiable,
     )
     return scn.Scene(
         geometry=geometry,

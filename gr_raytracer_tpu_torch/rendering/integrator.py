@@ -1,6 +1,7 @@
 """Batched adaptive RKF45 integration with in-loop events (port of
-gr_raytracer_tpu/rendering/integrator.py, its while-loop branch), and the
-integration types shared with the kernel path.
+gr_raytracer_tpu/rendering/integrator.py: its while loop, and its
+reverse-mode loop of checkpointed blocks), and the integration types
+shared with the kernel path.
 
 Every ray of a batch advances through one loop. Each accepted step tests
 the segment (x_prev → x_new) against the scene and folds a hit into a
@@ -19,6 +20,10 @@ Since the body is elementwise over lanes, a lane's result does not depend
 on the lanes beside it: the compacted, replayed loop equals a one-shot run
 of the body over every lane (`compact=False`) bit for bit on the card.
 
+With IntegrationConfig(differentiable=True) the loop runs in blocks of
+iterations instead (`run_blocks`), each through torch.utils.checkpoint,
+every iteration dispatched eagerly: autograd records no CUDA graph.
+
 Stop-reason priority follows the reference integrator: non-finite position
 > horizon > trapped orbit > celestial sphere > non-finite momentum.
 """
@@ -26,6 +31,7 @@ Stop-reason priority follows the reference integrator: non-finite position
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
@@ -78,7 +84,9 @@ class IntegrationConfig:
     that overflows them with more, rendering/raytracer.py). extra_attempts:
     iterations granted beyond max_steps for the controller's rejected
     trials. track_invariants: record the drift of k·k and of the
-    geometry's constants of motion."""
+    geometry's constants of motion. differentiable: the reverse-mode loop
+    of integrate_rays, blocks of checkpoint_block iterations, each
+    checkpointed (its residuals are recomputed in the backward pass)."""
 
     max_radius: float
     step_size: float
@@ -87,6 +95,8 @@ class IntegrationConfig:
     max_events: int = 8
     extra_attempts: int = 256
     track_invariants: bool = False
+    differentiable: bool = False
+    checkpoint_block: int = 32
 
 
 class IntegrationResult(NamedTuple):
@@ -217,6 +227,52 @@ def run_lanes(step, state, lanes: dict, running, max_iters: int, compact: bool =
     return state
 
 
+def run_blocks(block, state: dict, lanes: dict, running, n_blocks: int, iters: int, compact: bool,
+               name: str = "march_diff"):
+    """The reverse-mode form of run_lanes: n_blocks calls of block(state,
+    lanes) -> the next state, each one through torch.utils.checkpoint (the
+    block's residuals are dropped in the forward pass and recomputed in the
+    backward), skipped from the first block at whose start no lane is
+    running (one host read a block). Every tensor is written out of place:
+    an in-place write into a block's input would change what its recompute
+    reads, without an error. compact=True runs each block over the lanes
+    running at its start, gathered and scattered back by index (both
+    differentiable). `iters` counts the iterations of one block, for the
+    work counters; the counters of `name` also keep the lanes each block
+    ran over ("lanes_per_block")."""
+    from torch.utils.checkpoint import checkpoint
+
+    first = running(state)
+    n = first.shape[0]
+    it = n_done = work = 0
+    tail = []
+    t0 = time.perf_counter()
+    for _ in range(n_blocks):
+        run = running(state)
+        if compact:
+            idx = torch.nonzero(run).flatten()
+            m = idx.numel()
+            if m == 0:
+                break
+            sub = checkpoint(block, {k: v.index_select(0, idx) for k, v in state.items()},
+                             {k: v.index_select(0, idx) for k, v in lanes.items()}, use_reentrant=False)
+            state = {k: v.index_copy(0, idx, sub[k]) for k, v in state.items()}
+        else:
+            if not bool(run.any()):
+                break
+            m = n
+            state = checkpoint(block, state, lanes, use_reentrant=False)
+        it += iters
+        n_done += 1
+        work += iters * m
+        tail.append(m)
+    if first.is_cuda:
+        torch.cuda.synchronize(first.device)
+    _count(name, it, n_done, work, time.perf_counter() - t0)
+    loop_stats[name].setdefault("lanes_per_block", []).extend(tail)
+    return state
+
+
 def _lane_fields(obj, n) -> dict:
     """The per-lane tensor fields (leading dim n) of a solver dataclass."""
     return {
@@ -256,7 +312,16 @@ def integrate_rays(
     extra_attempts); finalize=False leaves unfinished lanes RUNNING instead
     of BUDGET; `resume`, a previous call's result for the same lanes,
     continues its march (y0 gives only the shape then). compact=False runs
-    the body over every lane each iteration, without graphs (run_lanes)."""
+    the body over every lane each iteration, without graphs (run_lanes).
+
+    cfg.differentiable: the reverse-mode loop (run_blocks), ⌈attempts /
+    checkpoint_block⌉ whole blocks, skipped once no lane is RUNNING, as the
+    JAX package's: its forward equals the loop above wherever no lane
+    reaches the attempt cap (past it, the last block runs to its end).
+    Its body feeds a stopped or non-finite lane a far-field state, so that
+    no NaN reaches a Jacobian, and writes the event buffer through a
+    one-hot slot select. On the CPU its lanes keep their places; on the
+    card each block runs over the lanes running at its start."""
     chart = solver.chart
     spin = geometry.spin
     n = y0.shape[0]
@@ -316,10 +381,21 @@ def integrate_rays(
         s = dataclasses.replace(solver, **{k: v for k, v in ln.items() if k != "init_const"})
         return _body(geometry, s, cfg, segment_fn, k_ev, max_radius_sq, const_names, c, ln["init_const"])
 
+    running = lambda c: c["stop"] == RUNNING  # noqa: E731
     # On the CPU the lanes keep their places: vectorized and scalar-tail
     # transcendentals may differ in the last bit by position.
-    carry = run_lanes(step, carry, lanes, lambda c: c["stop"] == RUNNING, max_attempts,
-                      compact=compact and y0.is_cuda)
+    if cfg.differentiable:
+        block = cfg.checkpoint_block
+
+        def run_block(c, ln):
+            for _ in range(block):
+                c = step(c, ln)
+            return c
+
+        carry = run_blocks(run_block, carry, lanes, running, -(-max_attempts // block), block,
+                           compact=compact and y0.is_cuda)
+    else:
+        carry = run_lanes(step, carry, lanes, running, max_attempts, compact=compact and y0.is_cuda)
 
     stop = carry["stop"]
     if finalize:
@@ -332,12 +408,33 @@ def integrate_rays(
     )
 
 
+def far_field_state(y, chart):
+    """The state [N, 8] the differentiable loop steps a stopped lane from:
+    at rest at r = 10 (x = 10 in the Cartesian chart), in the BL and
+    spherical charts on the equator. The JAX package's (r = 10, θ = 0)
+    lies on their axis, where their right-hand sides divide by sin θ: the
+    step's value is NaN there, its VJP in the step size 0·NaN, and its
+    reverse-mode gradients come out NaN (ROADMAP Queue 3)."""
+    state = torch.zeros_like(y)
+    state.narrow(-1, 1, 1).fill_(10.0)
+    if chart != charts.CARTESIAN:
+        state.narrow(-1, 2, 1).fill_(0.5 * math.pi)
+    return state
+
+
 def _body(geometry, solver, cfg, segment_fn, k_ev, max_radius_sq, const_names, c, init_const):
     """One iteration of integrate_rays over the lanes of carry `c`."""
     active = c["stop"] == RUNNING
     y, h = c["y"], c["h"]
+    y_rhs = y
+    if cfg.differentiable:
+        # A stopped or non-finite lane steps from a far-field state: a NaN
+        # in a Jacobian would turn its zero cotangent into NaN. Its step is
+        # masked out below, so nothing of it reaches a gradient.
+        lane_ok = torch.all(torch.isfinite(y), dim=-1) & active
+        y_rhs = torch.where(lane_ok[:, None], y, far_field_state(y, solver.chart))
 
-    y_trial, err = rkf45.rkf45_step(solver.rhs, y, h)
+    y_trial, err = rkf45.rkf45_step(solver.rhs, y_rhs, h)
     accept, h_acc, h_rej = rkf45.controller(h, err, cfg.epsilon)
 
     retry_overflow = (~accept) & (c["retries"] + 1 >= rkf45.MAX_RETRIES)
@@ -379,11 +476,18 @@ def _body(geometry, solver, cfg, segment_fn, k_ev, max_radius_sq, const_names, c
     store = hit & adv
     ev_count = c["ev_count"]
     can_store = store & (ev_count < k_ev)
-    slot = torch.clamp(ev_count, max=k_ev - 1).to(torch.int64)
-    rows = torch.arange(y.shape[0], device=y.device)
     ev_kind, ev_data = c["ev_kind"], c["ev_data"]
-    ev_kind[rows, slot] = torch.where(can_store, kind, ev_kind[rows, slot])
-    ev_data[rows, slot] = torch.where(can_store[:, None], data, ev_data[rows, slot])
+    if cfg.differentiable:
+        # Out of place, through a one-hot slot select (a block's input must
+        # stay as it was for the block's recompute).
+        slots = (torch.arange(k_ev, device=y.device)[None, :] == ev_count[:, None]) & can_store[:, None]
+        ev_kind = torch.where(slots, kind[:, None], ev_kind)
+        ev_data = torch.where(slots[..., None], data[:, None, :], ev_data)
+    else:
+        slot = torch.clamp(ev_count, max=k_ev - 1).to(torch.int64)
+        rows = torch.arange(y.shape[0], device=y.device)
+        ev_kind[rows, slot] = torch.where(can_store, kind, ev_kind[rows, slot])
+        ev_data[rows, slot] = torch.where(can_store[:, None], data, ev_data[rows, slot])
 
     out = dict(
         y=y_new, t=t_new, h=h_new, steps=steps, retries=retries, stop=new_stop,

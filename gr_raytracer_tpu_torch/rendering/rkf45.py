@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from gr_raytracer_tpu_torch.geometry.base import dot
+from gr_raytracer_tpu_torch.geometry.base import clip, dot, maximum
 
 # Butcher tableau (RKF45).
 _B21 = 2.0 / 9.0
@@ -59,6 +59,25 @@ def rkf45_step(rhs, y, h):
     return y_new, err
 
 
+class _Quotient(torch.autograd.Function):
+    """num / den, with the gradient -(g·q)/den in den. Its value has the
+    division's bits. Where g is 0 the gradient is 0, where autograd's
+    -g·num/den² is 0·∞ = NaN once den² underflows: a float32 lane that
+    stalls has err ~1e-20, and its proposal, not taken, passes g = 0."""
+
+    @staticmethod
+    def forward(ctx, num, den):
+        q = num / den
+        ctx.save_for_backward(q, den)
+        return q
+
+    @staticmethod
+    def backward(ctx, g):
+        q, den = ctx.saved_tensors
+        g_num = g / den if ctx.needs_input_grad[0] else None
+        return g_num, -(g * q) / den
+
+
 def controller(h, err, epsilon):
     """Step-size decisions, batched: (accept [...] bool, h_on_accept [...],
     h_on_reject [...]). On zero error grow by the cap; proposals are clamped
@@ -69,19 +88,19 @@ def controller(h, err, epsilon):
     tiny = torch.finfo(h.dtype).tiny
     proposed = torch.where(
         err > 0.0,
-        BETA * h * torch.pow(eps / torch.clamp(err, min=tiny), 1.0 / ORDER),
+        BETA * h * torch.pow(_Quotient.apply(eps, maximum(err, tiny)), 1.0 / ORDER),
         h * H_GROWTH_CAP,
     )
-    proposed = torch.clamp(torch.minimum(proposed, h * H_GROWTH_CAP), H_MIN, H_MAX)
+    proposed = clip(torch.minimum(proposed, h * H_GROWTH_CAP), H_MIN, H_MAX)
 
     at_floor = h <= H_MIN
     accept = ~(err > eps) | at_floor
 
-    grown = torch.clamp(h * H_GROWTH_CAP, H_MIN, H_MAX)
+    grown = clip(h * H_GROWTH_CAP, H_MIN, H_MAX)
     h_on_accept = torch.where(
         at_floor & (err > eps),
         h,
         torch.where(err / eps < SMALL_ERROR_RATIO, grown, proposed),
     )
-    h_on_reject = torch.clamp(proposed / 2.0, H_MIN, H_MAX)
+    h_on_reject = clip(proposed / 2.0, H_MIN, H_MAX)
     return accept, h_on_accept, h_on_reject

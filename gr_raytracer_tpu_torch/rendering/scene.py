@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from gr_raytracer_tpu_torch.geometry import chart as charts
-from gr_raytracer_tpu_torch.geometry.base import dot
+from gr_raytracer_tpu_torch.geometry.base import clip, dot
 from gr_raytracer_tpu_torch.objects.volumetric_disc import VolumetricDisc
 from gr_raytracer_tpu_torch.rendering import integrator as integ
 from gr_raytracer_tpu_torch.rendering.integrator import IntegrationConfig
@@ -232,7 +232,7 @@ def fold_samples(scene, ev_kind, ev_colors, stop_code, celestial):
     obj_opacity = torch.zeros((n,), dtype=dtype, device=device)
     for j in range(k):
         valid = ev_kind[:, j] >= 0
-        a = torch.clamp(ev_colors[:, j, 3], 0.0, 1.0) * valid
+        a = clip(ev_colors[:, j, 3], 0.0, 1.0) * valid
         premul = premul + (trans * a)[:, None] * ev_colors[:, j, :3]
         trans = trans * (1.0 - a)
         obj_opacity = a + obj_opacity * (1.0 - a)
@@ -241,7 +241,7 @@ def fold_samples(scene, ev_kind, ev_colors, stop_code, celestial):
     black = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
     escaped = stop_code == integ.CELESTIAL
     term = torch.where(escaped[:, None], celestial, black)
-    a_t = torch.clamp(term[:, 3], 0.0, 1.0)
+    a_t = clip(term[:, 3], 0.0, 1.0)
     premul = premul + (trans * a_t)[:, None] * term[:, :3]
     color = torch.cat([premul, torch.ones((n, 1), dtype=dtype, device=device)], dim=-1)
 
@@ -277,7 +277,11 @@ def trace_geometric(scene, positions, momenta) -> GeoTrace:
 def trace_rays(scene, positions, momenta) -> RaySamples:
     """Color a batch of camera rays ([N, 4] native-chart positions and
     momenta) through the RKF45 path. The color's alpha is 1. Volumetric
-    slots are raymarched inline (`_shade_events`)."""
+    slots are raymarched inline (`_shade_events`). With
+    scene.integration.differentiable (and a gas disc's `differentiable`)
+    the colors carry gradients to the scene's tensors through the solver,
+    the march, the shading and the fold, with no host sync inside the loop
+    (one a block)."""
     geometry = scene.geometry
     solver = geometry.make_solver(positions, momenta)
     y0 = solver.initial_state(positions, momenta)

@@ -16,6 +16,7 @@ from dataclasses import dataclass
 import torch
 
 from gr_raytracer_tpu_torch.geometry import circular_orbit
+from gr_raytracer_tpu_torch.geometry.base import abs_, clip, maximum
 from gr_raytracer_tpu_torch.ops.lut import uniform_interp
 
 NUM_LUT_STEPS = 1000
@@ -49,7 +50,7 @@ class TemperatureLUT:
 
     def at(self, r):
         dx = (self.radii[-1] - self.radii[0]) / (self.radii.shape[0] - 1)
-        r = torch.clamp(r, self.radii[0], self.radii[-1])
+        r = clip(r, self.radii[0], self.radii[-1])
         return uniform_interp(r, self.radii[0], dx, self.temps)
 
     def below_isco(self, r):
@@ -108,12 +109,12 @@ def build_disc_temperature(r_s, a, target_temperature, outer_radius, dtype, devi
     disc: uses |a|."""
     as_ = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     r_s = as_(r_s)
-    a_abs = torch.abs(as_(a))
+    a_abs = abs_(as_(a))
     target = as_(target_temperature)
     outer = as_(outer_radius)
 
     isco = circular_orbit.r_isco(r_s, a_abs)
-    adjusted = isco + torch.clamp(torch.abs(isco) * 1e-9, min=1e-6)
+    adjusted = isco + maximum(abs_(isco) * 1e-9, 1e-6)
     outer_eff = torch.where(outer <= isco, adjusted, outer)
 
     i = torch.arange(NUM_STEPS_FIND_MAXIMUM, dtype=dtype, device=device)

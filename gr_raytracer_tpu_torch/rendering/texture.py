@@ -10,6 +10,7 @@ from dataclasses import dataclass
 
 import torch
 
+from gr_raytracer_tpu_torch.geometry.base import clip, maximum
 from gr_raytracer_tpu_torch.ops.lut import uniform_interp
 from gr_raytracer_tpu_torch.rendering import blackbody
 from gr_raytracer_tpu_torch.rendering.color import apply_beaming, srgb8_to_xyza
@@ -114,8 +115,8 @@ class BlackBodyMap:
         return True  # sample() appends alpha = 1 unconditionally
 
     def sample(self, temperature):
-        lt = torch.log10(torch.clamp(temperature, min=blackbody.MIN_TEMPERATURE))
-        lt = torch.clamp(lt, self.log_t[0], self.log_t[-1])
+        lt = torch.log10(maximum(temperature, blackbody.MIN_TEMPERATURE))
+        lt = clip(lt, self.log_t[0], self.log_t[-1])
         dx = (self.log_t[-1] - self.log_t[0]) / (self.log_t.shape[0] - 1)
         xyz = uniform_interp(lt, self.log_t[0], dx, self.xyz)
         return torch.cat([xyz, torch.ones_like(xyz[..., :1])], dim=-1)
